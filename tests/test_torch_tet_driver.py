@@ -1,0 +1,136 @@
+"""The port's tet_order_calc against the JAX package's, its streaming and
+CLI, and the port's two rules: it imports no jax, and it never falls back
+to the CPU when a CUDA device is asked for."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from waterorderlib_tpu.drivers import orderparams as jop
+from waterorderlib_tpu.io.synthetic import make_water_box
+from waterorderlib_tpu_torch.drivers import orderparams as top_
+from waterorderlib_tpu_torch.ops.cuda import qtet2 as tqtet2
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_WAT, N_FRAMES = 512, 4
+
+
+@pytest.fixture(scope="module")
+def system():
+    top, traj = make_water_box(N_WAT, n_frames=N_FRAMES, seed=2)
+    wat_inds, _, _ = top.get_wat_inds()
+    sub_inds = [[wat_inds[f::3]] for f in range(N_FRAMES)]
+    return top, traj, sub_inds
+
+
+def _hist(path, j):
+    return np.loadtxt(os.path.join(path, f"qDistribution_{j}.txt"))
+
+
+def test_tet_order_calc_matches_jax(system, tmp_path):
+    top, traj, sub_inds = system
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "torch").mkdir()
+    want = jop.tet_order_calc(top, traj, sub_inds=sub_inds, n_pops=1,
+                              output_dir=str(tmp_path / "jax"))
+    got = top_.tet_order_calc(top, traj, sub_inds=sub_inds, n_pops=1,
+                              output_dir=str(tmp_path / "torch"), device="cpu")
+    for g, w in zip(got, want):  # avgQ, varQ: [means, CIs]
+        np.testing.assert_allclose(g[0], w[0], atol=1e-5)
+        np.testing.assert_allclose(g[1], w[1], atol=1e-5)
+
+    # histogram counts agree except where a q value lies within 1e-5 of a
+    # bin edge (float32 rounding may put it on either side)
+    wat_inds, _, _ = top.get_wat_inds()
+    pos = torch.as_tensor(traj.positions[:, wat_inds, :])
+    q = tqtet2.order_param_q_certified(pos, torch.as_tensor(traj.boxes)).numpy()
+    edges = np.linspace(0.0, 1.0, 501)
+    near = np.abs(q[..., None] - edges).min(axis=-1) < 1e-5
+    masks = [np.ones(q.shape, bool),
+             np.stack([np.isin(wat_inds, sub_inds[f][0]) for f in range(N_FRAMES)])]
+    for j in (0, 1):
+        hg, hw = _hist(tmp_path / "torch", j), _hist(tmp_path / "jax", j)
+        np.testing.assert_array_equal(hg[:, 0], hw[:, 0])
+        assert hg[:, 1].sum() > 0
+        assert np.abs(hg[:, 1] - hw[:, 1]).sum() <= 2 * int((near & masks[j]).sum())
+
+
+def test_chunked_with_checkpoint_matches_single_shot(system, tmp_path):
+    top, traj, sub_inds = system
+    (tmp_path / "one").mkdir()
+    (tmp_path / "chunked").mkdir()
+    one = top_.tet_order_calc(top, traj, sub_inds=sub_inds, n_pops=1,
+                              output_dir=str(tmp_path / "one"), device="cpu")
+    ck = str(tmp_path / "ck.npz")
+    chunked = top_.tet_order_calc(top, traj, sub_inds=sub_inds, n_pops=1,
+                                  output_dir=str(tmp_path / "chunked"), device="cpu",
+                                  chunk_frames=2, checkpoint=ck)
+    assert not os.path.exists(ck)  # removed on success
+    for a, b in zip(one, chunked):
+        np.testing.assert_allclose(a[0], b[0], atol=1e-6)
+        np.testing.assert_allclose(a[1], b[1], atol=1e-6)
+    for j in (0, 1):
+        np.testing.assert_array_equal(_hist(tmp_path / "one", j), _hist(tmp_path / "chunked", j))
+
+
+def test_cli_tet_on_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    base = str(tmp_path / "sys")
+    run = lambda *a: subprocess.run(  # noqa: E731
+        [sys.executable, "-m", "waterorderlib_tpu_torch", *a], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600,
+    )
+    gen = run("generate", "--waters", "64", "--frames", "3", "--out", base)
+    assert gen.returncode == 0, gen.stderr[-2000:]
+    out = run("tet", base + ".json", base + ".npz", "--device", "cpu",
+              "--output-dir", str(tmp_path))
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(res) == {"avgQ", "avgQ_CI", "varQ"}
+    assert np.isfinite(res["avgQ"]).all()
+    assert _hist(tmp_path, 0).shape == (500, 2)
+
+
+def test_port_imports_no_jax(tmp_path):
+    """Importing the port and running its driver leaves jax out of
+    sys.modules; of the JAX package only its jax-free modules load."""
+    import __graft_entry__ as g
+
+    code = (
+        "import sys\n"
+        "from waterorderlib_tpu.io.synthetic import make_water_box\n"
+        "import waterorderlib_tpu_torch.__main__, waterorderlib_tpu_torch.interop\n"
+        "from waterorderlib_tpu_torch.drivers.orderparams import tet_order_calc\n"
+        "top, traj = make_water_box(64, n_frames=2, seed=0)\n"
+        f"tet_order_calc(top, traj, output_dir={str(tmp_path)!r}, device='cpu')\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "shared = [m for m in sys.modules if m.startswith('waterorderlib_tpu.')]\n"
+        "bad = [m for m in shared if m.split('.')[1] not in "
+        "('io', 'stats', 'utils', 'constants')]\n"
+        "assert not bad, bad\n"
+        "print('no-jax ok')\n"
+    )
+    env = g._child_env(dict(os.environ), 1)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "no-jax ok" in out.stdout
+
+
+def test_cuda_without_a_gpu_raises(system, tmp_path, monkeypatch):
+    top, traj, _ = system
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        top_.tet_order_calc(top, traj, output_dir=str(tmp_path), device="cuda")
+
+
+def test_mesh_is_not_ported(system, tmp_path):
+    top, traj, _ = system
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        top_.tet_order_calc(top, traj, output_dir=str(tmp_path), device="cpu", mesh=object())
