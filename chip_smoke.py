@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure; nothing is caught):
 1. the card's name and power limit, and the build of every CUDA kernel on
-   the path from the sources in this checkout;
+   the paths from the sources in this checkout (one nvcc per source, all
+   started together), with ptxas's register and spill report;
 2. each kernel against its plain PyTorch version on the card at the main
-   path's shapes (4096 waters, 8 frames): the slab form, the brute form, the
-   straggler patch, and a sparse 512-atom box that must take the brute tier;
-3. the slice: `tet_order_calc` on a 4096-water, 1024-frame box with one
-   sub-population, device="cuda"; it must take the slab tier, launch the
-   kernel and never call the plain version; its q on 16 frames must match
-   the plain PyTorch q path. Prints the q stage's frames/s, the driver's
-   wall time, and the kernel's and plain version's ms per frame at the
-   slice's launch shape.
+   paths' shapes (a 4096-water jittered lattice, 8 frames): q_tet in the
+   slab form, the brute form, the straggler patch and a sparse 512-atom box
+   that must take the brute tier; the 3-body angles and psi6 in the slab
+   and brute forms;
+3. the q_tet slice: `tet_order_calc` on a 4096-water, 1024-frame box with
+   one sub-population, device="cuda"; it must take the slab tier, launch
+   the kernel and never call the plain version; its q on 16 frames must
+   match the plain PyTorch q path;
+4. the 3-body slice: `three_body_calc` on the same box (output_2d=True) and
+   the psi6 slice: `hex_order_calc` on its 2048 chain-end centers, with the
+   same assertions; their angles and psi on 16 frames must match the plain
+   paths `order.angles.neighbor_angles` and `order.psi6.order_param_psi`;
+   then one more call of each of the three drivers under the drivers'
+   stage clock (`orderparams.stage_times`: host gather, H2D, masks, kernel
+   stage, device stats, D2H, savetxt, bootstrap);
+5. each kernel's time per frame at its slice's own launch (F=1024) and its
+   plain version's on 64 frames of it;
+6. 131,072 and 1,048,576 atoms, 1 frame: each certified dispatch must take
+   the slab tier, and each kernel must equal its plain version on two row
+   tiles passed as the rows and window starts of those tiles only.
 
 The last line is one JSON object, {"ok": true, "device": {...}}; before it
-come a JSON line of the kernels' launches in the slice, largest error and
-times ("ms", "plain_ms": per frame), and the card's name and power
-limit. Without a CUDA
-device, or outside a checkout of the repository, it exits non-zero and
-prints no result. Imports nothing of JAX.
+come a JSON line of the kernels (launches in their slice, largest error
+against the plain version, times per frame of the kernel, the plain version
+and the bound, "bound_by"; "library_ms" is null: no single PyTorch call
+computes these functions), and the card's name and power limit. Without a
+CUDA device, or outside a checkout of the repository, it exits non-zero and
+prints no result. Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -37,9 +51,29 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 N_WATERS = 4096
 N_FRAMES_CMP = 8
 N_FRAMES_SLICE = 1024
-TOL = 1e-5  # float32 q; kernel and plain version do the same operations
-# modules of the JAX package that import no jax, which the port reuses
-JAX_FREE = {"io", "stats", "utils", "constants"}
+N_FRAMES_PLAIN = 64
+LARGE_SIZES = (131_072, 1_048_576)
+Q_TOL = 1e-5    # float32 q; kernel and plain version do the same operations
+ANG_TOL = 1e-4  # degrees
+PSI_TOL = 1e-5
+# peaks of one H100 SXM (NVIDIA's data sheet, at a 700 W power limit):
+# float32 outside the tensor cores, and HBM3
+PEAK_FP32 = 67e12  # FLOP/s
+PEAK_HBM = 3.35e12  # bytes/s
+# float32 operations each kernel does: per (row, window column) pair --
+# 3 subtracts, 6 minimum-image adds, a squared length (5) -- and per row in
+# its epilogue: per neighbor slot 19 (displacement, length, sqrt, 1/x,
+# scaling), per neighbor pair 10 (q), 26 (angle: cosine, clip, arccos
+# polynomial, degrees) or 24 (psi6: cosine, clip, T6, sqrt, U5, sums)
+PAIR_FLOPS = 14
+EPILOGUE_FLOPS = {"qtet_window": 4 * 19 + 6 * 10, "angles_window": 16 * 19 + 120 * 26,
+                  "psi6_window": 24 * 19 + 276 * 24}
+SOURCES = {"qtet_window": "waterorderlib_tpu_torch/ops/cuda/csrc/qtet_window.cu",
+           "angles_window": "waterorderlib_tpu_torch/ops/cuda/csrc/nbr_window.cu",
+           "psi6_window": "waterorderlib_tpu_torch/ops/cuda/csrc/nbr_window.cu"}
+REPLACES = {"qtet_window": "waterorderlib_tpu/ops/pallas/qtet2.py:111",
+            "angles_window": "waterorderlib_tpu/ops/pallas/angles_kernel.py:159",
+            "psi6_window": "waterorderlib_tpu/ops/pallas/psi6_kernel.py:163"}
 
 
 def _check(cond: bool, what: str) -> None:
@@ -56,9 +90,9 @@ def _card() -> str:
 
 
 def _lattice_traj(n, f, seed):
-    """bench.py-style jittered lattice: frames of a 4096-water box, f32."""
+    """bench.py-style jittered lattice at water density: (f, n, 3) f32."""
     import numpy as np
-    from waterorderlib_tpu.io.synthetic import water_oxygen_lattice
+    from waterorderlib_tpu_torch.io.synthetic import water_oxygen_lattice
 
     box_len = (n / 0.033456) ** (1.0 / 3.0)
     rs = np.random.RandomState(seed)
@@ -84,20 +118,124 @@ def _ms(fn, args, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def _compare(name, args, qtet2):
-    """Kernel vs plain version on the same inputs; returns max|dq|."""
+def _bound_ms(name, args, out_bytes_per_row):
+    """Least time of one launch on these inputs: the larger of its float32
+    operations over the peak rate and its bytes (each input read once, each
+    output written once) over the memory rate. Returns (ms, bound_by)."""
+    rows, cols, starts, boxes, w = args[:5]
+    F, _, n_rows = rows.shape
+    flops = F * n_rows * (w * PAIR_FLOPS + EPILOGUE_FLOPS[name])
+    in_bytes = 4 * (cols.numel() + starts.numel() + boxes.numel())
+    if rows.data_ptr() < cols.data_ptr() or rows.data_ptr() >= cols.data_ptr() + 4 * cols.numel():
+        in_bytes += 4 * rows.numel()  # rows are not a view into the columns
+    t_ops = flops / PEAK_FP32 * 1e3
+    t_bytes = (in_bytes + F * n_rows * out_bytes_per_row) / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _cmp(name, kernel, plain, args, tols):
+    """Kernel vs plain version on the same inputs: every output within its
+    tolerance (0 means exactly equal). Returns the largest float error."""
     import torch
 
-    qk, okk = qtet2.q_window(*args)
-    qp, okp = qtet2.q_window_plain(*args)
+    got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
-    err = float((qk - qp).abs().max())
-    mism = int((okk != okp).sum())
-    print(f"[kernel] {name}: max|dq|={err:.3e} ok_mismatches={mism}", flush=True)
-    _check(bool(torch.isfinite(qk).all()), f"{name}: kernel q not finite")
-    _check(err <= TOL, f"{name}: max|dq| {err} > {TOL}")
-    _check(mism == 0, f"{name}: {mism} ok mismatches")
-    return err
+    errs = []
+    for g, w, tol in zip(got, want, tols):
+        if g.dtype.is_floating_point:
+            _check(bool(torch.isfinite(g).all()), f"{name}: kernel output not finite")
+            err = float((g - w).abs().max()) if g.numel() else 0.0
+            errs.append(err)
+            _check(err <= tol, f"{name}: max|d| {err} > {tol}")
+        else:
+            mism = int((g != w).sum())
+            _check(mism == 0, f"{name}: {mism} mismatches in an exact output")
+    print(f"[kernel] {kernel.__name__} {name}: max|d|={max(errs):.3e}, exact outputs equal",
+          flush=True)
+    return max(errs)
+
+
+def _two_tiles(prep, n, pad, rt):
+    """Rows and window starts of the first and the last row tile only (the
+    boundary tiles, whose windows reach into the pad copies)."""
+    import torch
+
+    last = prep.n_tiles - 1
+    sel = torch.cat([torch.arange(0, rt), torch.arange(last * rt, min(n, (last + 1) * rt))])
+    sel = sel.to(prep.ext_t.device)
+    rows = prep.ext_t[:, :, pad : pad + n][:, :, sel].contiguous()
+    starts = prep.starts[[0, last]].contiguous()
+    return rows, starts, sel
+
+
+def _slab_args(pos, boxes, margin, rt, high, qtet):
+    """(prep, n, pad, kernel arguments) of a slab-form launch, as the
+    certified dispatch plans it."""
+    from waterorderlib_tpu_torch.ops.cuda import slab
+
+    n = pos.shape[1]
+    window, pad = slab.plan(n, float(boxes[0, 2]), margin, rt)
+    prep = slab.slab_prep_traj(pos, boxes, margin, rt, window, pad)
+    _check(bool(prep.covered.all()), f"slab prep not covered (n={n}, margin={margin})")
+    args = (prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts, boxes, prep.w, rt,
+            0.0, high * high)
+    return prep, n, pad, args + ((margin * margin,) if qtet else ())
+
+
+def _brute_args(pos, boxes, rt, high, qtet):
+    import torch
+    from waterorderlib_tpu_torch.ops.cuda import slab
+
+    n = pos.shape[1]
+    ext = slab.brute_cols(pos, boxes)
+    starts = torch.zeros(-(-n // rt), dtype=torch.int32, device=pos.device)
+    return (ext, ext, starts, boxes, n, rt, 0.0, high * high) + ((high * high,) if qtet else ())
+
+
+def _stages(label, driver_fn):
+    """One more (warm) driver call under the drivers' stage clock: the wall
+    time of each of its named steps, the device synchronised between them.
+    Returns {stage: ms}."""
+    from waterorderlib_tpu_torch.drivers import orderparams
+
+    with tempfile.TemporaryDirectory() as d, orderparams.stage_times() as t:
+        t0 = time.perf_counter()
+        driver_fn(d)
+        wall = (time.perf_counter() - t0) * 1e3
+    print(f"[stages] {label}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in t.items())
+          + f"; sum {sum(t.values()):.2f} ms; wall {wall:.2f} ms", flush=True)
+    return t
+
+
+def _slice(label, driver_fn, counters, tier_of, files, n_results):
+    """Run a driver with its kernel's counters set to 0; check tier,
+    launches, plain calls, files and finite statistics. Returns launches."""
+    import numpy as np
+    import torch
+
+    kernel, plain = counters
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        plain.calls = 0
+        t0 = time.perf_counter()
+        res = driver_fn(out_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain_calls, tier = kernel.launches, plain.calls, tier_of()
+        hists = [np.loadtxt(os.path.join(out_dir, f)) for f in files]
+    print(f"[slice] {label}: tier={tier} {kernel.__name__} launches={launches} "
+          f"plain calls={plain_calls} wall={wall:.3f} s "
+          f"means={[np.asarray(r[0]).tolist() for r in res]}", flush=True)
+    _check(tier == "slab", f"{label} took tier {tier}, not slab")
+    _check(launches > 0, f"{label} never launched {kernel.__name__}")
+    _check(plain_calls == 0, f"{label} called the plain version")
+    _check(all(h.shape == (500, 2) for h in hists), f"{label}: histogram files are not (500, 2)")
+    _check(all(int(h[:, 1].sum()) > 0 for h in hists), f"{label}: empty histogram")
+    _check(len(res) == n_results, f"{label}: {len(res)} results, not {n_results}")
+    _check(all(np.all(np.isfinite(np.asarray(a))) for r in res for a in r),
+           f"{label}: statistics not finite")
+    return launches
 
 
 def main() -> int:
@@ -110,14 +248,17 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
     import waterorderlib_tpu_torch
-    from waterorderlib_tpu.io.synthetic import make_water_box
     from waterorderlib_tpu_torch.drivers import orderparams
+    from waterorderlib_tpu_torch.io.synthetic import make_water_box
     from waterorderlib_tpu_torch.ops import pairs
-    from waterorderlib_tpu_torch.ops.cuda import build, qtet2, slab
+    from waterorderlib_tpu_torch.ops.cuda import angles, build, psi6, qtet2
+    from waterorderlib_tpu_torch.order import angles as angles_ref
+    from waterorderlib_tpu_torch.order import psi6 as psi6_ref
     from waterorderlib_tpu_torch.order import qtet
 
     pkg_dir = os.path.dirname(os.path.dirname(os.path.abspath(waterorderlib_tpu_torch.__file__)))
     _check(pkg_dir == REPO, f"the port was imported from {pkg_dir}, not this checkout")
+    t_start = time.perf_counter()
 
     # 1. the card and the build
     card = _card()
@@ -125,135 +266,233 @@ def main() -> int:
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}",
           flush=True)
     t0 = time.perf_counter()
-    build.load("qtet_window")
-    print(f"[build] qtet_window.cu built and loaded in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    build.build_all(["qtet_window", "nbr_window"])
+    print(f"[build] qtet_window.cu and nbr_window.cu built in parallel in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, log in build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "Function properties" in line or "registers" in line or "spill" in line:
+                print(f"[ptxas] {name}: {line.strip()}", flush=True)
     dev = torch.device("cuda")
+    errs = {k: [] for k in SOURCES}
 
-    # 2. kernel against plain version, at the main path's shapes
+    # 2. kernels against plain versions, at the main paths' shapes
     pos_np, boxes_np = _lattice_traj(N_WATERS, N_FRAMES_CMP, seed=0)
     pos, boxes = torch.from_numpy(pos_np).to(dev), torch.from_numpy(boxes_np).to(dev)
-    n, box_l, rt = N_WATERS, float(boxes_np[0, 2]), 256
-    window = qtet2.suggest_window(n, box_l, margin=4.5, row_tile=rt)
-    pad = slab.suggest_pad(n, box_l, 4.5 + 2.0)
-    prep = slab.slab_prep_traj(pos, boxes, 4.5, rt, window, pad)
-    _check(bool(prep.covered.all()), "slab prep not covered")
-    slab_args = (prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts, boxes, prep.w, rt,
-                 0.0, 100.0, 4.5 * 4.5)
-    err_slab = _compare(f"slab form (w={prep.w})", slab_args, qtet2)
-    ext = torch.remainder(pos, boxes[:, None, :]).transpose(1, 2).contiguous()
-    starts0 = torch.zeros(-(-n // rt), dtype=torch.int32, device=dev)
-    brute_args = (ext, ext, starts0, boxes, n, rt, 0.0, 100.0, 100.0)
-    err_brute = _compare("brute form", brute_args, qtet2)
-    q_brute_plain, _ = qtet2.q_window_plain(*brute_args)
+    n, rt = N_WATERS, 256
+    _, _, _, slab_args = _slab_args(pos, boxes, 4.5, rt, 10.0, qtet=True)
+    q_k, q_p = qtet2.q_window, qtet2.q_window_plain
+    errs["qtet_window"].append(_cmp(f"slab form (w={slab_args[4]})", q_k, q_p, slab_args,
+                                    (Q_TOL, 0)))
+    brute_args = _brute_args(pos, boxes, rt, 10.0, qtet=True)
+    errs["qtet_window"].append(_cmp("brute form", q_k, q_p, brute_args, (Q_TOL, 0)))
+    q_brute_plain, _ = q_p(*brute_args)
 
     # straggler patch: a margin just under the 3 largest 4th-neighbor
     # distances leaves 3 uncertified rows, patched by the brute form
     d4 = torch.cat([pairs.topk_neighbors(pos[f], pos[f], boxes[f], 4, 0.0, 10.0).dist[:, 3]
                     for f in range(N_FRAMES_CMP)])
-    top4 = torch.sort(d4).values[-4:-2]
-    margin = float(top4.mean())
-    before = qtet2.q_window.launches
+    margin = float(torch.sort(d4).values[-4:-2].mean())
+    before = q_k.launches
     q_cert = qtet2.order_param_q_certified(pos, boxes, 0.0, 10.0, margin=margin)
-    patched = qtet2.q_window.launches - before - 1
+    patched = q_k.launches - before - 1
     err_patch = float((q_cert - q_brute_plain).abs().max())
     print(f"[kernel] straggler patch: margin={margin:.4f} tier={qtet2.last_tier} "
           f"patch launches={patched} max|dq| vs plain brute={err_patch:.3e}", flush=True)
     _check(qtet2.last_tier == "slab" and patched >= 1, "straggler patch did not run")
-    _check(err_patch <= TOL, f"straggler patch: max|dq| {err_patch} > {TOL}")
+    _check(err_patch <= Q_TOL, f"straggler patch: max|dq| {err_patch} > {Q_TOL}")
+    errs["qtet_window"].append(err_patch)
 
     rs = np.random.RandomState(13)
     sp_pos = torch.as_tensor(rs.uniform(0, 200.0, (2, 512, 3)), dtype=torch.float32, device=dev)
     sp_boxes = torch.full((2, 3), 200.0, device=dev)
     q_sp = qtet2.order_param_q_certified(sp_pos, sp_boxes, 0.0, 50.0)
-    sp_ext = torch.remainder(sp_pos, sp_boxes[:, None, :]).transpose(1, 2).contiguous()
-    q_sp_plain, _ = qtet2.q_window_plain(
-        sp_ext, sp_ext, torch.zeros(2, dtype=torch.int32, device=dev), sp_boxes, 512, rt,
-        0.0, 2500.0, 2500.0,
-    )
+    q_sp_plain, _ = q_p(*_brute_args(sp_pos, sp_boxes, rt, 50.0, qtet=True))
     err_sparse = float((q_sp - q_sp_plain).abs().max())
     print(f"[kernel] sparse 512-atom box: tier={qtet2.last_tier} max|dq|={err_sparse:.3e}",
           flush=True)
     _check(qtet2.last_tier == "brute", "sparse box did not take the brute tier")
-    _check(err_sparse <= TOL, f"sparse box: max|dq| {err_sparse} > {TOL}")
+    _check(err_sparse <= Q_TOL, f"sparse box: max|dq| {err_sparse} > {Q_TOL}")
+    errs["qtet_window"].append(err_sparse)
 
-    # 3. the slice, through the user's entry point
+    a_k, a_p = angles.angles_window, angles.angles_window_plain
+    p_k, p_p = psi6.psi6_window, psi6.psi6_window_plain
+    for label, args_fn in (("slab form", lambda m, h: _slab_args(pos, boxes, m, 128, h, False)[3]),
+                           ("brute form", lambda m, h: _brute_args(pos, boxes, 128, h, False))):
+        errs["angles_window"].append(_cmp(label, a_k, a_p, args_fn(4.5, 3.413), (ANG_TOL, 0)))
+        errs["psi6_window"].append(_cmp(label, p_k, p_p, args_fn(7.0, 7.0), (PSI_TOL, 0)))
+
+    # 3. the q_tet slice, through the user's entry point
     top, traj = make_water_box(N_WATERS, n_frames=N_FRAMES_SLICE, seed=0)
     wat_inds, _, _ = top.get_wat_inds()
+    end_inds = wat_inds[1::2]
     sub_inds = [[wat_inds[::2]] for _ in range(N_FRAMES_SLICE)]
-    with tempfile.TemporaryDirectory() as out_dir:
-        torch.cuda.synchronize()
-        qtet2.q_window.launches = 0
-        qtet2.q_window_plain.calls = 0
-        t0 = time.perf_counter()
-        avg_q, var_q = orderparams.tet_order_calc(
-            top, traj, sub_inds=sub_inds, n_pops=1, output_dir=out_dir, device="cuda"
-        )
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, plain_calls = qtet2.q_window.launches, qtet2.q_window_plain.calls
-        tier = qtet2.last_tier
-        hists = [np.loadtxt(os.path.join(out_dir, f"qDistribution_{j}.txt")) for j in (0, 1)]
-    print(f"[slice] tet_order_calc {N_WATERS} waters x {N_FRAMES_SLICE} frames: tier={tier} "
-          f"q_window launches={launches} plain calls={plain_calls} wall={wall:.3f} s "
-          f"avgQ={avg_q[0].tolist()} varQ={var_q[0].tolist()}", flush=True)
-    _check(tier == "slab", f"slice took tier {tier}, not slab")
-    _check(launches > 0, "the slice never launched the kernel")
-    _check(plain_calls == 0, "the slice called the plain version")
-    _check(all(h.shape == (500, 2) for h in hists), "qDistribution files are not (500, 2)")
-    _check(int(hists[0][:, 1].sum()) > 0, "empty q histogram")
-    _check(all(np.all(np.isfinite(np.asarray(a))) for a in (*avg_q, *var_q)),
-           "averages not finite")
-
+    end_sub = [[end_inds[::2]] for _ in range(N_FRAMES_SLICE)]
+    drivers = {
+        "tet_order_calc": lambda d: orderparams.tet_order_calc(
+            top, traj, sub_inds=sub_inds, n_pops=1, output_dir=d, device="cuda"),
+        "three_body_calc": lambda d: orderparams.three_body_calc(
+            top, traj, sub_inds=sub_inds, n_pops=1, output_dir=d, output_2d=True, device="cuda"),
+        "hex_order_calc": lambda d: orderparams.hex_order_calc(
+            top, traj, sub_inds=end_sub, n_pops=1, output_dir=d, device="cuda"),
+    }
+    launches = {}
+    launches["qtet_window"] = _slice(
+        f"tet_order_calc {N_WATERS} waters x {N_FRAMES_SLICE} frames", drivers["tet_order_calc"],
+        (q_k, q_p), lambda: qtet2.last_tier, ["qDistribution_0.txt", "qDistribution_1.txt"], 2,
+    )
     wat_pos = torch.as_tensor(traj.positions[:, wat_inds, :], dtype=torch.float32, device=dev)
+    end_pos = torch.as_tensor(traj.positions[:, end_inds, :], dtype=torch.float32, device=dev)
     wat_boxes = torch.as_tensor(traj.boxes, dtype=torch.float32, device=dev)
     q_all = qtet2.order_param_q_certified(wat_pos, wat_boxes)  # warm-up
     torch.cuda.synchronize()
-    reps = 3
     t0 = time.perf_counter()
-    for _ in range(reps):
+    for _ in range(3):
         q_all = qtet2.order_param_q_certified(wat_pos, wat_boxes)
     torch.cuda.synchronize()
-    fps = reps * N_FRAMES_SLICE / (time.perf_counter() - t0)
+    fps = 3 * N_FRAMES_SLICE / (time.perf_counter() - t0)
     q_ref = torch.stack([qtet.order_param_q(wat_pos[f], wat_pos[f], wat_boxes[f])
                          for f in range(16)])
     err_slice = float((q_all[:16] - q_ref).abs().max())
-    print(f"[slice] q stage: {fps:.1f} frames/s ({N_WATERS} waters, F={N_FRAMES_SLICE}, "
-          f"{card}); q of 16 frames vs plain PyTorch q: max|dq|={err_slice:.3e}", flush=True)
-    _check(err_slice <= TOL, f"slice q: max|dq| {err_slice} > {TOL}")
+    print(f"[slice] q stage: {fps:.1f} frames/s ({N_WATERS} waters, F={N_FRAMES_SLICE}); "
+          f"q of 16 frames vs plain PyTorch q: max|dq|={err_slice:.3e}", flush=True)
+    _check(err_slice <= Q_TOL, f"slice q: max|dq| {err_slice} > {Q_TOL}")
+    errs["qtet_window"].append(err_slice)
 
-    # the kernel's time at the slice's own launch (all 1024 frames in one
-    # launch, slab form); the plain version on 64 of those frames, per frame
-    box_z = float(wat_boxes[0, 2])
-    window = qtet2.suggest_window(n, box_z)
-    pad = slab.suggest_pad(n, box_z, 4.5 + 2.0)
-    prep = slab.slab_prep_traj(wat_pos, wat_boxes, 4.5, rt, window, pad)
-    main_args = (prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts, wat_boxes,
-                 prep.w, rt, 0.0, 100.0, 4.5 * 4.5)
-    sub_args = (main_args[0][:64], prep.ext_t[:64], prep.starts, wat_boxes[:64], *main_args[4:])
-    err_main = _compare("slab form, slice frames 0-63", sub_args, qtet2)
-    ms = _ms(qtet2.q_window, main_args, 10) / N_FRAMES_SLICE
-    plain_ms = _ms(qtet2.q_window_plain, sub_args, 2) / 64
-    print(f"[time] slab form at the slice's launch (w={prep.w}): kernel {ms:.5f} ms/frame "
-          f"(F={N_FRAMES_SLICE}), plain version {plain_ms:.5f} ms/frame (F=64); {card}",
-          flush=True)
+    # 4. the 3-body and psi6 slices, through the user's entry points
+    launches["angles_window"] = _slice(
+        f"three_body_calc {N_WATERS} waters x {N_FRAMES_SLICE} frames",
+        drivers["three_body_calc"], (a_k, a_p), lambda: angles.last_tier,
+        ["3bDistribution_0.txt", "3bDistribution_1.txt"], 5,
+    )
+    launches["psi6_window"] = _slice(
+        f"hex_order_calc {len(end_inds)} chain-end centers x {N_FRAMES_SLICE} frames",
+        drivers["hex_order_calc"], (p_k, p_p), lambda: psi6.last_tier,
+        ["psiDistribution_0.txt", "psiDistribution_1.txt"], 2,
+    )
+    for label, fn, p in (("angles", angles.neighbor_pair_angles_certified, wat_pos),
+                         ("psi6", psi6.psi6_certified, end_pos)):
+        fn(p, wat_boxes)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = fn(p, wat_boxes)
+        torch.cuda.synchronize()
+        fps = 3 * N_FRAMES_SLICE / (time.perf_counter() - t0)
+        print(f"[slice] {label} stage (certified dispatch, F={N_FRAMES_SLICE}): "
+              f"{fps:.1f} frames/s", flush=True)
+        if label == "angles":
+            ang_all, cnt_all = out
+        else:
+            psi_all, _ = out
 
-    # no jax: of the JAX package only its jax-free modules were imported
+    valid_all = angles.pair_validity(cnt_all[:16])
+    err_ang = 0.0
+    for f in range(16):
+        ref = angles_ref.neighbor_angles(wat_pos[f], wat_pos[f], wat_boxes[f], 0.0, 3.413, k=16)
+        _check(bool((cnt_all[f].long() == ref.count.long()).all()), f"frame {f}: counts differ")
+        got = torch.sort(torch.where(valid_all[f], ang_all[f], -1.0), dim=1).values
+        want = torch.sort(torch.where(ref.valid, ref.ang, -1.0).reshape(N_WATERS, -1),
+                          dim=1).values[:, -got.shape[1]:]
+        err_ang = max(err_ang, float((got - want).abs().max()))
+    psi_ref = torch.stack([psi6_ref.order_param_psi(end_pos[f], end_pos[f], wat_boxes[f],
+                                                     0.0, 7.0, k=24) for f in range(16)])
+    err_psi = float((psi_all[:16] - psi_ref).abs().max())
+    print(f"[slice] 16 frames vs plain paths: angle multisets max|d|={err_ang:.3e} deg "
+          f"(counts equal), psi max|d|={err_psi:.3e}", flush=True)
+    _check(err_ang <= 5e-3, f"slice angles: max|d| {err_ang} > 5e-3 degrees")
+    _check(err_psi <= 5e-5, f"slice psi: max|d| {err_psi} > 5e-5")
+    del ang_all, cnt_all, valid_all
+
+    for label, drive in drivers.items():
+        _stages(label, drive)
+
+    # 5. each kernel's time at its slice's own launch (all 1024 frames, slab
+    # form, as the certified dispatch plans it); plain version on 64 frames
+    mains = {
+        "qtet_window": (q_k, q_p, _slab_args(wat_pos, wat_boxes, 4.5, 256, 10.0, True)[3], 5, Q_TOL),
+        "angles_window": (a_k, a_p, _slab_args(wat_pos, wat_boxes, 4.5, 128, 3.413, False)[3],
+                          4 * 128 + 4, ANG_TOL),
+        "psi6_window": (p_k, p_p, _slab_args(end_pos, wat_boxes, 7.0, 128, 7.0, False)[3],
+                        4 + 4, PSI_TOL),
+    }
+    times = {}
+    for name, (kern, plain, args, out_bytes, tol) in mains.items():
+        sub = (args[0][:N_FRAMES_PLAIN], args[1][:N_FRAMES_PLAIN], args[2],
+               args[3][:N_FRAMES_PLAIN], *args[4:])
+        errs[name].append(_cmp(f"slab form, slice frames 0-{N_FRAMES_PLAIN - 1}", kern, plain,
+                               sub, (tol, 0)))
+        ms = _ms(kern, args, 10) / N_FRAMES_SLICE
+        plain_ms = _ms(plain, sub, 2) / N_FRAMES_PLAIN
+        bound, bound_by = _bound_ms(name, args, out_bytes)
+        times[name] = (ms, plain_ms, bound / N_FRAMES_SLICE, bound_by)
+        print(f"[time] {name} slab form at its slice's launch ({args[0].shape[2]} rows, "
+              f"w={args[4]}): kernel {ms:.5f} ms/frame (F={N_FRAMES_SLICE}), plain "
+              f"{plain_ms:.5f} ms/frame (F={N_FRAMES_PLAIN}), bound {bound / N_FRAMES_SLICE:.5f} "
+              f"ms/frame ({bound_by}); {card}", flush=True)
+    del wat_pos, end_pos
+
+    # 6. 131k and 1M atoms: the certified dispatch takes the slab tier, and
+    # each kernel equals its plain version on two boundary row tiles
+    for n_big in LARGE_SIZES:
+        bp_np, bb_np = _lattice_traj(n_big, 1, seed=n_big % 997)
+        bp, bb = torch.from_numpy(bp_np).to(dev), torch.from_numpy(bb_np).to(dev)
+        cases = (
+            ("qtet_window", lambda: (qtet2.order_param_q_certified(bp, bb),), lambda: qtet2.last_tier,
+             4.5, 256, 10.0, True, (Q_TOL, 0)),
+            ("angles_window", lambda: angles.neighbor_pair_angles_certified(bp, bb),
+             lambda: angles.last_tier, 4.5, 128, 3.413, False, (ANG_TOL, 0)),
+            ("psi6_window", lambda: psi6.psi6_certified(bp, bb), lambda: psi6.last_tier,
+             7.0, 128, 7.0, False, (PSI_TOL, 0)),
+        )
+        for name, certified, tier_of, margin, rt_, high, is_q, tols in cases:
+            kern, plain = mains[name][:2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = certified()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tier = tier_of()
+            _check(tier == "slab", f"{name} at {n_big} atoms took tier {tier}, not slab")
+            prep, nn, pad, args = _slab_args(bp, bb, margin, rt_, high, is_q)
+            rows, starts, sel = _two_tiles(prep, nn, pad, rt_)
+            sub = (rows, args[1], starts, *args[3:])
+            err = _cmp(f"{n_big} atoms, 2 row tiles (w={args[4]})", kern, plain, sub, tols)
+            errs[name].append(err)
+            k_out = kern(*sub)[0]
+            atoms = prep.order0[sel]  # the tiles' rows in the original atom order
+            err_full = float((full[0][:, atoms] - k_out).abs().max())
+            _check(err_full <= tols[0], f"{name} at {n_big}: full launch vs tiles {err_full}")
+            ms = _ms(kern, args, 3)
+            bound, bound_by = _bound_ms(name, args, mains[name][3])
+            print(f"[large] {name} {n_big} atoms: tier={tier} certified call {wall:.3f} s, "
+                  f"w={args[4]}, full launch vs 2-tile launch max|d|={err_full:.3e}; kernel "
+                  f"{ms:.3f} ms/frame, bound {bound:.3f} ms/frame ({bound_by}); {card}",
+                  flush=True)
+            del full, prep, args, sub, k_out
+        del bp, bb
+        torch.cuda.empty_cache()
+
+    # no jax, and nothing of the JAX package
     _check("jax" not in sys.modules, "jax was imported")
-    shared = sorted(m for m in sys.modules if m.startswith("waterorderlib_tpu."))
-    _check(all(m.split(".")[1] in JAX_FREE for m in shared),
-           f"imported JAX-package modules beyond the jax-free ones: {shared}")
+    shared = sorted(m for m in sys.modules
+                    if m == "waterorderlib_tpu" or m.startswith("waterorderlib_tpu."))
+    _check(not shared, f"modules of the JAX package were imported: {shared}")
+    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
-        "name": "qtet_window",
+        "name": name,
         "route": "cuda",
-        "source": "waterorderlib_tpu_torch/ops/cuda/csrc/qtet_window.cu",
-        "replaces": "waterorderlib_tpu/ops/pallas/qtet2.py:111",
-        "launches": launches,
-        "max_abs_err": max(err_slab, err_brute, err_patch, err_sparse, err_slice, err_main),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+        "source": SOURCES[name],
+        "replaces": REPLACES[name],
+        "launches": launches[name],
+        "max_abs_err": max(errs[name]),
+        "ms": times[name][0],
+        "plain_ms": times[name][1],
+        "bound_ms": times[name][2],
+        "bound_by": times[name][3],
+        "library_ms": None,
+    } for name in SOURCES]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

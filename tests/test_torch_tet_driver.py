@@ -1,6 +1,7 @@
 """The port's tet_order_calc against the JAX package's, its streaming and
-CLI, and the port's two rules: it imports no jax, and it never falls back
-to the CPU when a CUDA device is asked for."""
+CLI, and the port's rules: it imports nothing of the JAX package (its
+copies of the jax-free modules reproduce them), and it never falls back to
+the CPU when a CUDA device is asked for."""
 
 import json
 import os
@@ -12,9 +13,12 @@ import pytest
 import torch
 
 from waterorderlib_tpu.drivers import orderparams as jop
-from waterorderlib_tpu.io.synthetic import make_water_box
+from waterorderlib_tpu.io.synthetic import make_water_box as jax_box
+from waterorderlib_tpu.stats import blocks as jblocks
 from waterorderlib_tpu_torch.drivers import orderparams as top_
+from waterorderlib_tpu_torch.io.synthetic import make_water_box
 from waterorderlib_tpu_torch.ops.cuda import qtet2 as tqtet2
+from waterorderlib_tpu_torch.stats import blocks as tblocks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_WAT, N_FRAMES = 512, 4
@@ -36,7 +40,8 @@ def test_tet_order_calc_matches_jax(system, tmp_path):
     top, traj, sub_inds = system
     (tmp_path / "jax").mkdir()
     (tmp_path / "torch").mkdir()
-    want = jop.tet_order_calc(top, traj, sub_inds=sub_inds, n_pops=1,
+    jtop, jtraj = jax_box(N_WAT, n_frames=N_FRAMES, seed=2)
+    want = jop.tet_order_calc(jtop, jtraj, sub_inds=sub_inds, n_pops=1,
                               output_dir=str(tmp_path / "jax"))
     got = top_.tet_order_calc(top, traj, sub_inds=sub_inds, n_pops=1,
                               output_dir=str(tmp_path / "torch"), device="cpu")
@@ -97,21 +102,21 @@ def test_cli_tet_on_cpu(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing the port and running its driver leaves jax out of
-    sys.modules; of the JAX package only its jax-free modules load."""
+    """Importing the port and running its drivers leaves jax, and every
+    module of the JAX package, out of sys.modules."""
     import __graft_entry__ as g
 
     code = (
         "import sys\n"
-        "from waterorderlib_tpu.io.synthetic import make_water_box\n"
+        "from waterorderlib_tpu_torch.io.synthetic import make_water_box\n"
         "import waterorderlib_tpu_torch.__main__, waterorderlib_tpu_torch.interop\n"
-        "from waterorderlib_tpu_torch.drivers.orderparams import tet_order_calc\n"
+        "from waterorderlib_tpu_torch.drivers import orderparams as op\n"
         "top, traj = make_water_box(64, n_frames=2, seed=0)\n"
-        f"tet_order_calc(top, traj, output_dir={str(tmp_path)!r}, device='cpu')\n"
+        "for fn in (op.tet_order_calc, op.three_body_calc, op.hex_order_calc):\n"
+        f"    fn(top, traj, output_dir={str(tmp_path)!r}, device='cpu')\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
-        "shared = [m for m in sys.modules if m.startswith('waterorderlib_tpu.')]\n"
-        "bad = [m for m in shared if m.split('.')[1] not in "
-        "('io', 'stats', 'utils', 'constants')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'waterorderlib_tpu' or m.startswith('waterorderlib_tpu.')]\n"
         "assert not bad, bad\n"
         "print('no-jax ok')\n"
     )
@@ -134,3 +139,16 @@ def test_mesh_is_not_ported(system, tmp_path):
     top, traj, _ = system
     with pytest.raises(NotImplementedError, match="queue 1 item 15"):
         top_.tet_order_calc(top, traj, output_dir=str(tmp_path), device="cpu", mesh=object())
+
+
+def test_port_synthetic_reproduces_jax_systems():
+    """The port's copy of io.synthetic builds, for a seed, the system the
+    JAX package builds; stats.blocks gives the same intervals."""
+    jtop, jtraj = jax_box(N_WAT, n_frames=N_FRAMES, seed=2, solute_elements=["C", "O"])
+    ttop, ttraj = make_water_box(N_WAT, n_frames=N_FRAMES, seed=2, solute_elements=["C", "O"])
+    np.testing.assert_array_equal(ttraj.positions, jtraj.positions)
+    np.testing.assert_array_equal(ttraj.boxes, jtraj.boxes)
+    for t, j in zip(ttop.get_wat_inds(), jtop.get_wat_inds()):
+        np.testing.assert_array_equal(t, j)
+    series = np.random.RandomState(4).normal(size=50)
+    assert tblocks.block_average(series, seed=0) == jblocks.block_average(series, seed=0)

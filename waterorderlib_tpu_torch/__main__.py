@@ -2,6 +2,8 @@
 
     python -m waterorderlib_tpu_torch generate --waters 216 --frames 50 --out sys
     python -m waterorderlib_tpu_torch tet sys.json sys.npz --output-dir out/ --device cuda
+    python -m waterorderlib_tpu_torch 3body sys.json sys.npz --output-dir out/
+    python -m waterorderlib_tpu_torch psi sys.json sys.npz --output-dir out/
 """
 
 from __future__ import annotations
@@ -9,6 +11,19 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+def _add_common(p):
+    p.add_argument("top", help="topology: .json, .npz (embedded), or AMBER .prmtop/.parm7/.top")
+    p.add_argument("traj", help="trajectory: .npz, .dcd, AMBER NetCDF .nc, or AMBER ASCII .mdcrd/.crd")
+    p.add_argument("--stride", type=int, default=1)
+    p.add_argument("--wat-res", default="WAT")
+    p.add_argument("--output-dir", default=".")
+    p.add_argument("--chunk-frames", type=int, default=0,
+                   help="stream the trajectory in chunks of this many frames "
+                        "(larger-than-memory support; 0 = load whole)")
+    p.add_argument("--mesh", default="", help="device mesh, e.g. 4x2 (not ported yet)")
+    p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
 
 
 def main(argv=None):
@@ -22,23 +37,21 @@ def main(argv=None):
     g.add_argument("--solute", default="", help="comma-separated solute elements, e.g. C,C,O")
     g.add_argument("--out", default="system", help="basename for .json/.npz outputs")
 
-    p = sub.add_parser("tet", help="tetrahedral order parameter q")
-    p.add_argument("top", help="topology: .json, .npz (embedded), or AMBER .prmtop/.parm7/.top")
-    p.add_argument("traj", help="trajectory: .npz, .dcd, AMBER NetCDF .nc, or AMBER ASCII .mdcrd/.crd")
-    p.add_argument("--stride", type=int, default=1)
-    p.add_argument("--wat-res", default="WAT")
-    p.add_argument("--output-dir", default=".")
-    p.add_argument("--chunk-frames", type=int, default=0,
-                   help="stream the trajectory in chunks of this many frames "
-                        "(larger-than-memory support; 0 = load whole)")
-    p.add_argument("--mesh", default="", help="device mesh, e.g. 4x2 (not ported yet)")
-    p.add_argument("--high-cut", type=float, default=10.0)
-    p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    for name, helptext, extra in [
+        ("tet", "tetrahedral order parameter q", [("--high-cut", float, 10.0)]),
+        ("3body", "3-body angle distribution",
+         [("--high-cut", float, 3.413), ("--max-neighbors", int, 16)]),
+        ("psi", "hexagonal order parameter psi6", [("--high-cut", float, 7.0)]),
+    ]:
+        p = sub.add_parser(name, help=helptext)
+        _add_common(p)
+        for flag, typ, dflt in extra:
+            p.add_argument(flag, type=typ, default=dflt)
 
     args = ap.parse_args(argv)
 
     if args.cmd == "generate":
-        from waterorderlib_tpu.io.synthetic import make_water_box
+        from waterorderlib_tpu_torch.io.synthetic import make_water_box
 
         sol = [s for s in args.solute.split(",") if s]
         top, traj = make_water_box(
@@ -51,15 +64,28 @@ def main(argv=None):
               f"({traj.n_frames} frames, {traj.n_atoms} atoms)")
         return 0
 
-    from waterorderlib_tpu_torch.drivers.orderparams import tet_order_calc
+    from waterorderlib_tpu_torch.drivers import orderparams
 
-    avg_q, var_q = tet_order_calc(
-        args.top, args.traj, stride=args.stride, output_dir=args.output_dir,
-        wat_res=args.wat_res, high_cut=args.high_cut, device=args.device,
-        chunk_frames=args.chunk_frames or None, mesh=args.mesh or None,
-    )
-    print(json.dumps({"avgQ": avg_q[0].tolist(), "avgQ_CI": avg_q[1].tolist(),
-                      "varQ": var_q[0].tolist()}))
+    common = dict(stride=args.stride, output_dir=args.output_dir, device=args.device,
+                  high_cut=args.high_cut, chunk_frames=args.chunk_frames or None,
+                  mesh=args.mesh or None)
+    if args.cmd == "tet":
+        avg_q, var_q = orderparams.tet_order_calc(
+            args.top, args.traj, wat_res=args.wat_res, **common
+        )
+        print(json.dumps({"avgQ": avg_q[0].tolist(), "avgQ_CI": avg_q[1].tolist(),
+                          "varQ": var_q[0].tolist()}))
+    elif args.cmd == "3body":
+        p_tet, avg_cos, var_cos, entropy, n_wats = orderparams.three_body_calc(
+            args.top, args.traj, wat_res=args.wat_res, max_neighbors=args.max_neighbors,
+            **common,
+        )
+        print(json.dumps({"pTet": p_tet[0].tolist(), "entropy": entropy[0].tolist()}))
+    else:
+        avg_psi, var_psi = orderparams.hex_order_calc(
+            args.top, args.traj, end_res=args.wat_res, **common
+        )
+        print(json.dumps({"avgPsi": avg_psi[0].tolist()}))
     return 0
 
 

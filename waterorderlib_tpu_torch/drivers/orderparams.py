@@ -1,30 +1,38 @@
 """Trajectory-level order-parameter drivers (port of
-waterorderlib_tpu.drivers.orderparams; the q_tet driver so far).
+waterorderlib_tpu.drivers.orderparams): `tet_order_calc`, `three_body_calc`
+and `hex_order_calc`.
 
-The whole trajectory moves to the device once as an (F, Nw, 3) float32
-tensor; q is computed for every water by the certified slab dispatch
-(ops/cuda/qtet2.py), and sub-populations are boolean masks over the water
-axis, so population statistics are masked reductions over the same values.
-Writes `qDistribution_j.txt` into `output_dir` and returns [mean, CI] pairs
-from the same 20-block bootstrap (host numpy, `seed`) as the JAX package.
+The whole trajectory moves to the device once as an (F, Nc, 3) float32
+tensor of centers; each driver computes its per-center values for every
+center by a certified kernel dispatch (ops/cuda/qtet2.py, angles.py,
+psi6.py), and sub-populations are boolean masks over the center axis, so
+population statistics are masked reductions over the same values. Each
+driver writes the JAX package's text artifacts into `output_dir` and returns
+[mean, CI] pairs from the same 20-block bootstrap (host numpy, `seed`).
+
+`stage_times()` times the named steps of the driver calls made inside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
-from time import monotonic
+from time import monotonic, perf_counter
 
 import numpy as np
 import torch
 
-from waterorderlib_tpu.io.streaming import iter_chunks
-from waterorderlib_tpu.io.topology import Topology
-from waterorderlib_tpu.io.trajectory import Trajectory, load_system, load_topology
-from waterorderlib_tpu.stats import blocks
-from waterorderlib_tpu.utils import logging as _logging_mod
+from waterorderlib_tpu_torch.io.streaming import iter_chunks
+from waterorderlib_tpu_torch.io.topology import Topology
+from waterorderlib_tpu_torch.io.trajectory import Trajectory, load_system, load_topology
 from waterorderlib_tpu_torch.ops import histograms, pairs
+from waterorderlib_tpu_torch.ops.cuda import angles as angles_kernel
+from waterorderlib_tpu_torch.ops.cuda import psi6 as psi6_kernel
 from waterorderlib_tpu_torch.ops.cuda import qtet2
+from waterorderlib_tpu_torch.order import angles as angles_mod
+from waterorderlib_tpu_torch.stats import blocks
+from waterorderlib_tpu_torch.utils import logging as _logging_mod
 
 
 def _device(device) -> torch.device:
@@ -39,11 +47,59 @@ def _device(device) -> torch.device:
     return dev
 
 
+# stage name -> ms, while a `stage_times` block is open; None otherwise
+_stage_ms: dict | None = None
+_stage_t0 = 0.0
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def stage_times():
+    """Time the named steps (host gather, H2D, masks, kernel stage, stats,
+    D2H, savetxt, bootstrap) of the driver calls made inside the block.
+    Yields a dict to which each step adds its wall time in ms at its end,
+    the CUDA device synchronised there. Outside a block a step's end costs
+    one comparison."""
+    global _stage_ms, _stage_t0
+    _sync()
+    _stage_ms, _stage_t0 = {}, perf_counter()
+    try:
+        yield _stage_ms
+    finally:
+        _stage_ms = None
+
+
+def _stage_end(name: str) -> None:
+    global _stage_t0
+    if _stage_ms is None:
+        return
+    _sync()
+    now = perf_counter()
+    _stage_ms[name] = _stage_ms.get(name, 0.0) + (now - _stage_t0) * 1e3
+    _stage_t0 = now
+
+
 def _log_tier(driver: str, tier: str) -> None:
     """Record (once per driver+tier) which kernel tier served a driver call."""
-    _logging_mod.log_once(
-        ("waterorderlib_tpu_torch", driver, tier), "%s: serving tier=%s", driver, tier
-    )
+    _logging_mod.log_once((driver, tier), "%s: serving tier=%s", driver, tier)
+
+
+def _not_ported(mesh, max_neighbors=None, k=None, driver=""):
+    """Raise for the options the port does not have yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet: torch.distributed scale-out is ROADMAP "
+            "queue 1 item 15"
+        )
+    if max_neighbors is not None and max_neighbors != k:
+        raise NotImplementedError(
+            f"{driver}: max_neighbors={max_neighbors} is not ported; its kernel keeps "
+            f"the K={k} nearest shell neighbors (ROADMAP queue 1, the {driver} item)"
+        )
 
 
 def _resolve_system(top_file, traj_file, stride):
@@ -106,27 +162,76 @@ def _masks_tensor(sub_inds, n_frames, n_pops, row_map, nw, device) -> torch.Tens
     return torch.as_tensor(np.concatenate([all_mask, pops], axis=1), device=device)
 
 
-# ---------------------------------------------------------------------------
-# tetOrderCalc
-# ---------------------------------------------------------------------------
+def _centers(top, wat_res, center_select):
+    """Center atom indices: the water oxygens, or `center_select(top)`."""
+    if center_select is not None:
+        return np.asarray(center_select(top))
+    return top.get_wat_inds(wat_res)[0]
 
-def _q_pop_stats(q_all, masks, n_bins, lo, hi):
-    """Masked population statistics over precomputed q (F, Nw): returns
-    (hist (P+1, n_bins) int64, (means (F, P+1), vars (F, P+1)))."""
-    means, vars_ = histograms.masked_mean_var(q_all[:, None, :], masks)
+
+def _as_numpy(out):
+    """A core's tensor or tuple of tensors as numpy arrays."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_as_numpy(t) for t in out)
+    return out.cpu().numpy()
+
+
+def _frames_in(positions, boxes, inds, sub_inds, n_pops, row_map, device):
+    """Center rows (F, Nc, 3), boxes (F, 3) and population masks of a frame
+    batch on the device."""
+    pos_np = positions[:, inds, :]
+    _stage_end("host gather")
+    # trajectories may hold float64 frames; the kernels take float32
+    pos = torch.as_tensor(pos_np, dtype=torch.float32, device=device)
+    boxes_t = torch.as_tensor(boxes, dtype=torch.float32, device=device)
+    _stage_end("H2D")
+    masks = _masks_tensor(sub_inds, pos.shape[0], n_pops, row_map, len(inds), device)
+    _stage_end("masks (host + H2D)")
+    return pos, boxes_t, masks
+
+
+def _run_core(core, pos, boxes, masks):
+    """`core(pos, boxes, masks)`'s (carry, stats) as numpy."""
+    out = _as_numpy(core(pos, boxes, masks))
+    _stage_end("D2H")
+    return out
+
+
+def _run_whole(top_file, traj_file, sub_inds, n_pops, wat_res, stride, core, device,
+               center_select=None):
+    """Run `core(center_pos, boxes, masks)` over the whole trajectory at once;
+    returns its (carry, stats) as numpy."""
+    top, traj = _resolve_system(top_file, traj_file, stride)
+    inds = _centers(top, wat_res, center_select)
+    frames = _frames_in(traj.positions, traj.boxes, inds, sub_inds, n_pops,
+                        _row_of_atom(inds, top.n_atoms), device)
+    return _run_core(core, *frames)
+
+
+def _masked_value_pop_stats(values, masks, n_bins, lo, hi):
+    """(hist (P+1, n_bins) int64, (means (F, P+1), vars (F, P+1))) of
+    per-center values (F, N) under per-population masks (F, P+1, N)."""
+    means, vars_ = histograms.masked_mean_var(values[:, None, :], masks)
     hist = torch.stack([
-        histograms.masked_histogram(q_all, masks[:, p, :], n_bins, lo, hi)
+        histograms.masked_histogram(values, masks[:, p, :], n_bins, lo, hi)
         for p in range(masks.shape[1])
     ])
     return hist, (means, vars_)
 
+
+# ---------------------------------------------------------------------------
+# tetOrderCalc
+# ---------------------------------------------------------------------------
 
 def _tet_core(wat_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi):
     """q + population statistics for one frame batch: returns
     (hist (P+1, n_bins), (means (F, P+1), vars (F, P+1)))."""
     q_all = qtet2.order_param_q_certified(wat_pos, boxes, low_cut, high_cut)
     _log_tier("tet_order_calc", qtet2.last_tier)
-    return _q_pop_stats(q_all, masks, n_bins, lo, hi)
+    _stage_end("kernel stage")
+    out = _masked_value_pop_stats(q_all, masks, n_bins, lo, hi)
+    _stage_end("stats (device)")
+    return out
 
 
 def tet_order_calc(
@@ -156,11 +261,7 @@ def tet_order_calc(
     `checkpoint`. `row_block` is accepted for the JAX package's signature;
     the kernel path has no row blocks. `mesh` is not ported yet.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: torch.distributed scale-out is ROADMAP "
-            "queue 1 item 15"
-        )
+    _not_ported(mesh)
     dev = _device(device)
     n_bins, lo, hi = 500, 0.0, 1.0
 
@@ -174,23 +275,225 @@ def tet_order_calc(
             fp_params=("tet", low_cut, high_cut),
         )
     else:
-        top, traj = _resolve_system(top_file, traj_file, stride)
-        wat_inds, _, _ = top.get_wat_inds(wat_res)
-        nw = len(wat_inds)
-        # trajectories may hold float64 frames; the kernels take float32
-        wat_pos = torch.as_tensor(traj.positions[:, wat_inds, :], dtype=torch.float32, device=dev)
-        boxes = torch.as_tensor(traj.boxes, dtype=torch.float32, device=dev)
-        masks = _masks_tensor(
-            sub_inds, traj.n_frames, n_pops, _row_of_atom(wat_inds, top.n_atoms), nw, dev
+        hist, (avg_q, var_q) = _run_whole(
+            top_file, traj_file, sub_inds, n_pops, wat_res, stride, core, dev
         )
-        hist, (avg_q, var_q) = core(wat_pos, boxes, masks)
-        hist, avg_q, var_q = (t.cpu().numpy() for t in (hist, avg_q, var_q))
     for j in range(n_pops + 1):
         _save_hist(
             os.path.join(output_dir, f"qDistribution_{j}.txt"),
             hist[j], n_bins, lo, hi, "qVal    frequency",
         )
-    return _mean_ci_rows(avg_q, seed), _mean_ci_rows(var_q, seed)
+    _stage_end("savetxt")
+    out = _mean_ci_rows(avg_q, seed), _mean_ci_rows(var_q, seed)
+    _stage_end("bootstrap (host)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# threeBodyCalc
+# ---------------------------------------------------------------------------
+
+def _three_body_stats(ang, cnt, masks, n_bins, lo, hi, n2x):
+    """Statistics of the kernel path's pair angles (F, N, 128) and shell
+    counts (F, N): ((hist (P+1, n_bins), hist2d (n2x * n_bins,)),
+    (frac, avg, var, ent, n_wats) each (F, P+1)). Entropy and the other
+    metrics are per frame and population, from per-frame histograms."""
+    valid = angles_kernel.pair_validity(cnt)  # (F, N, 128)
+    per_pop = [
+        angles_mod.tetrahedral_metrics_flat(ang, valid & masks[:, p, :, None], n_bins, lo, hi)
+        for p in range(masks.shape[1])
+    ]
+    hist = torch.stack([m.hist.sum(dim=0) for m in per_pop])
+    frac, avg, var, ent = (
+        torch.stack([getattr(m, name) for m in per_pop], dim=1)
+        for name in ("frac_tet", "avg_cos", "var_cos", "entropy")
+    )
+    n_wats = masks.sum(dim=-1).to(torch.float32)
+    # 2-D histogram: per valid angle, x = the center's neighbor count - 1;
+    # the angle bin is floor(ang / (hi / n_bins)), the JAX package's rule here
+    width = torch.tensor(hi / n_bins, dtype=torch.float32, device=ang.device)
+    abin = torch.clamp(torch.floor(ang / width), 0, n_bins - 1).to(torch.int64)
+    cc = torch.clamp(cnt.to(torch.int64) - 1, 0, n2x - 1)
+    flat_bin = cc[..., None] * n_bins + abin
+    hist2d = torch.bincount(flat_bin[valid], minlength=n2x * n_bins)
+    return (hist, hist2d), (frac, avg, var, ent, n_wats)
+
+
+def _three_body_core(wat_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi, n2x):
+    """3-body angles + metrics for one frame batch (see _three_body_stats)."""
+    ang, cnt = angles_kernel.neighbor_pair_angles_certified(wat_pos, boxes, low_cut, high_cut)
+    _log_tier("three_body_calc", angles_kernel.last_tier)
+    _stage_end("kernel stage")
+    out = _three_body_stats(ang, cnt, masks, n_bins, lo, hi, n2x)
+    _stage_end("stats (device)")
+    return out
+
+
+def three_body_calc(
+    top_file,
+    traj_file,
+    sub_inds=None,
+    n_pops: int = 0,
+    wat_res: str = "WAT",
+    n_bins: int = 500,
+    stride: int = 1,
+    low_cut: float = 0.0,
+    high_cut: float = 3.413,
+    max_neighbors: int = 16,
+    output_dir: str = ".",
+    row_block: int = pairs.DEFAULT_ROW_BLOCK,
+    seed: int | None = 0,
+    output_2d: bool = False,
+    chunk_frames: int | None = None,
+    checkpoint: str | None = None,
+    mesh=None,
+    device="cuda",
+):
+    """Three-body angle distribution driver (orderParam_lib.py:1269-1424).
+
+    Returns (pTet, avgCos, varCos, entropy, nWats), each [means, CIs] over
+    populations (slot 0 = all waters). Writes 3bDistribution_j.txt, and with
+    output_2d also the (coordination, angle) 2-D histogram as txt and, where
+    matplotlib is installed, PNG. `chunk_frames`/`checkpoint` stream the
+    trajectory as in tet_order_calc. The kernel keeps the 16 nearest shell
+    neighbors: other `max_neighbors`, and `mesh`, are not ported yet.
+    """
+    _not_ported(mesh, max_neighbors, angles_kernel.K, "three_body_calc")
+    dev = _device(device)
+    lo, hi = 0.0, 180.0
+    # 2-D (coordination, angle) histogram, xedges=arange(-1.5,13.5) (ref :1390)
+    n2x = 14
+
+    def core(wat_pos, boxes, masks):
+        return _three_body_core(wat_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi, n2x)
+
+    if chunk_frames is not None:
+        (hist, hist2d), stats = _run_chunked(
+            top_file, traj_file, sub_inds, n_pops, wat_res, stride, chunk_frames,
+            core, n_carry=2, n_stats=5, device=dev, checkpoint=checkpoint,
+            fp_params=("3body", low_cut, high_cut, n_bins),
+        )
+    else:
+        (hist, hist2d), stats = _run_whole(
+            top_file, traj_file, sub_inds, n_pops, wat_res, stride, core, dev
+        )
+    return _three_body_outputs(
+        hist, hist2d, *stats, n_pops, n_bins, lo, hi, n2x, output_dir, output_2d, seed,
+    )
+
+
+def _three_body_outputs(
+    hist, hist2d, frac, avg, var, ent, n_wats,
+    n_pops, n_bins, lo, hi, n2x, output_dir, output_2d, seed,
+):
+    """Artifact writing + statistics tail of three_body_calc."""
+    for j in range(n_pops + 1):
+        _save_hist(
+            os.path.join(output_dir, f"3bDistribution_{j}.txt"),
+            hist[j], n_bins, lo, hi, "3-body angle (deg)    frequency",
+        )
+    if output_2d:
+        h2 = np.asarray(hist2d, dtype=np.float64).reshape(n2x, n_bins)
+        h2 = h2 / max(h2.sum(), 1.0)
+        np.savetxt(
+            os.path.join(output_dir, "3bDistribution_2D.txt"), h2,
+            header="rows: coordination number N_c (0..13); cols: angle bins over [0,180)",
+            fmt="%.3e",
+        )
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+
+            fig, ax = plt.subplots(figsize=(4, 4))
+            ax.imshow(
+                h2, interpolation="gaussian", cmap="viridis", aspect="auto",
+                origin="lower", extent=(0, 180, 0, n2x),
+            )
+            ax.set_xlabel(r"$\theta$ [deg]")
+            ax.set_ylabel(r"$N_c$")
+            fig.savefig(os.path.join(output_dir, "3bDistribution_2D.png"), dpi=120)
+            plt.close(fig)
+        except Exception as e:  # plotting is best-effort, but never silent
+            _logging_mod.get_logger().warning("three_body_calc: 2-D PNG skipped (%r)", e)
+    _stage_end("savetxt")
+    out = tuple(_mean_ci_rows(np.asarray(a), seed) for a in (frac, avg, var, ent, n_wats))
+    _stage_end("bootstrap (host)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# hexOrderCalc
+# ---------------------------------------------------------------------------
+
+def _psi_core(end_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi):
+    """psi-6 + population statistics for one frame batch: returns
+    (hist (P+1, n_bins), (means (F, P+1), vars (F, P+1)))."""
+    psi, _ = psi6_kernel.psi6_certified(end_pos, boxes, low_cut, high_cut)
+    _log_tier("hex_order_calc", psi6_kernel.last_tier)
+    _stage_end("kernel stage")
+    out = _masked_value_pop_stats(psi, masks, n_bins, lo, hi)
+    _stage_end("stats (device)")
+    return out
+
+
+def hex_order_calc(
+    top_file,
+    traj_file,
+    sub_inds=None,
+    n_pops: int = 0,
+    end_res: str = "WAT",
+    stride: int = 1,
+    low_cut: float = 0.0,
+    high_cut: float = 7.0,
+    max_neighbors: int = 24,
+    output_dir: str = ".",
+    row_block: int = pairs.DEFAULT_ROW_BLOCK,
+    seed: int | None = 0,
+    chunk_frames: int | None = None,
+    checkpoint: str | None = None,
+    mesh=None,
+    device="cuda",
+):
+    """psi-6 hexagonal order driver (orderParam_lib.py:1505-1584).
+
+    Chain-end centers are every other "water" heavy index
+    (endInds = watInds[1::2], ref :1527). Returns (avgPsi, varPsi); writes
+    psiDistribution_j.txt per population. `chunk_frames`/`checkpoint`
+    stream the trajectory as in tet_order_calc. The kernel keeps the 24
+    nearest shell neighbors: other `max_neighbors`, and `mesh`, are not
+    ported yet.
+    """
+    _not_ported(mesh, max_neighbors, psi6_kernel.K, "hex_order_calc")
+    dev = _device(device)
+    n_bins, lo, hi = 500, 0.0, 1.0
+
+    def core(end_pos, boxes, masks):
+        return _psi_core(end_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi)
+
+    def ends(top):
+        return np.asarray(top.get_wat_inds(end_res)[0])[1::2]
+
+    if chunk_frames is not None:
+        hist, (avg_psi, var_psi) = _run_chunked(
+            top_file, traj_file, sub_inds, n_pops, end_res, stride, chunk_frames,
+            core, n_carry=1, n_stats=2, device=dev, checkpoint=checkpoint,
+            fp_params=("psi", low_cut, high_cut, max_neighbors), center_select=ends,
+        )
+    else:
+        hist, (avg_psi, var_psi) = _run_whole(
+            top_file, traj_file, sub_inds, n_pops, end_res, stride, core, dev,
+            center_select=ends,
+        )
+    for j in range(n_pops + 1):
+        _save_hist(
+            os.path.join(output_dir, f"psiDistribution_{j}.txt"),
+            hist[j], n_bins, lo, hi, "psiVal    frequency",
+        )
+    _stage_end("savetxt")
+    out = _mean_ci_rows(avg_psi, seed), _mean_ci_rows(var_psi, seed)
+    _stage_end("bootstrap (host)")
+    return out
 
 
 def _traj_fingerprint(traj_file, fp_params, wat_res, sub_inds) -> bytes:
@@ -228,7 +531,7 @@ def _traj_fingerprint(traj_file, fp_params, wat_res, sub_inds) -> bytes:
 def _run_chunked(
     top_file, traj_file, sub_inds, n_pops, wat_res, stride, chunk_frames,
     core, n_carry, n_stats, device, checkpoint: str | None = None,
-    fp_params: tuple = (),
+    fp_params: tuple = (), center_select=None,
 ):
     """Stream a trajectory through `core(wat_pos, boxes, masks)` in chunks.
 
@@ -241,9 +544,10 @@ def _run_chunked(
     every 10 s and an interrupted scan resumes from the last completed chunk.
     The checkpoint is fingerprinted by (chunk_frames, stride, n_pops, nw)
     plus the trajectory's identity and `fp_params`; it is removed on success.
+    `center_select(top) -> index array` overrides the water-oxygen centers.
     """
     top = top_file if isinstance(top_file, Topology) else load_topology(top_file)
-    wat_inds, _, _ = top.get_wat_inds(wat_res)
+    wat_inds = _centers(top, wat_res, center_select)
     nw = len(wat_inds)
     row_map = _row_of_atom(wat_inds, top.n_atoms)
 
@@ -271,14 +575,11 @@ def _run_chunked(
             frame0 += fc
             continue  # chunk already in the checkpoint
         sub_c = sub_inds[frame0 : frame0 + fc] if sub_inds is not None else None
-        masks_c = _masks_tensor(sub_c, fc, n_pops, row_map, nw, device)
-        carry, stats = core(
-            torch.as_tensor(pos_c[:, wat_inds, :], dtype=torch.float32, device=device),
-            torch.as_tensor(boxes_c, dtype=torch.float32, device=device),
-            masks_c,
+        carry, stats = _run_core(
+            core, *_frames_in(pos_c, boxes_c, wat_inds, sub_c, n_pops, row_map, device)
         )
-        carry = [c.cpu().numpy() for c in (carry if isinstance(carry, (tuple, list)) else (carry,))]
-        stats = [s.cpu().numpy() for s in (stats if isinstance(stats, (tuple, list)) else (stats,))]
+        carry = list(carry) if isinstance(carry, (tuple, list)) else [carry]
+        stats = list(stats) if isinstance(stats, (tuple, list)) else [stats]
         carry_acc = carry if carry_acc is None else [a + c for a, c in zip(carry_acc, carry)]
         stats_parts.append(stats)
         frame0 += fc

@@ -1,10 +1,11 @@
 """Carry state from the JAX package into the port.
 
 This system has no weights: its state is the trajectory and the slab prep.
-`Topology` and `Trajectory` (waterorderlib_tpu.io) are shared as they are;
-`slab_prep_from_jax` turns the JAX package's `SlabPrep` arrays into the
-port's, so the port's kernel contract can be fed the JAX prep and kernel
-parity checked apart from prep parity.
+The port's `io` is a copy of the JAX package's, so a system built or loaded
+by either holds the same arrays (pass them as numpy); `slab_prep_from_jax`
+turns the JAX package's `SlabPrep` arrays into the port's, so the port's
+kernel contracts can be fed the JAX prep and kernel parity checked apart
+from prep parity.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel source under `csrc/` exposes a plain C entry point. At first use
+Each kernel source under `csrc/` exposes plain C entry points. At first use
 it is compiled by nvcc into a shared library under `build/torch_kernels/`
-at the repository root and loaded with ctypes. The file name carries a hash
+at the repository root and loaded with ctypes; `build_all` compiles several
+sources at once. The file name carries a hash
 of the source and the flags, so an edited source is rebuilt and a stale
 library is never loaded. A failed build raises with nvcc's stderr. Nothing is
 downloaded and no library kernel is linked.
@@ -24,13 +25,18 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    # exact float32: no fused multiply-adds, no fast-math intrinsics, so the
-    # kernel's distances and tie-breaks match the plain PyTorch version
+    # exact float32: no fused multiply-adds but the explicit fmaf calls, no
+    # fast-math intrinsics, so the kernels' distances and tie-breaks match
+    # the plain PyTorch versions
     "--fmad=false",
+    # ptxas reports each kernel's registers, shared memory and spills
+    "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# nvcc's stderr (the ptxas report) of each source built in this process
+BUILD_LOG: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -44,26 +50,45 @@ def _nvcc() -> str:
     return str(path)
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the library for this source and these
-    flags exists; returns the library's path."""
+def _library(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     key = hashlib.sha256(src + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{key}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}) building {name}:\n{' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
-    return out
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def build_all(names) -> dict[str, Path]:
+    """Compile each csrc/<name>.cu whose library for this source and these
+    flags is missing, one nvcc process per source, all started together;
+    returns each library's path. Raises, after every nvcc has ended, if one
+    failed."""
+    paths = {name: _library(name) for name in names}
+    jobs = []
+    for name, out in paths.items():
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, proc, tmp, out, cmd))
+    failed = []
+    for name, proc, tmp, out, cmd in jobs:
+        _, err = proc.communicate()
+        BUILD_LOG[name] = err
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}) building {name}:\n{' '.join(cmd)}\n{err}")
+        else:
+            os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless its library exists; returns its path."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

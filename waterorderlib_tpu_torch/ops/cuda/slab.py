@@ -107,6 +107,30 @@ def suggest_pad(n: int, box_z: float, depth: float, safety: float = 1.6) -> int:
     return int(min(n, -(-est // 128) * 128))
 
 
+def suggest_window(n: int, box_z: float, margin: float = 4.5, row_tile: int = 256,
+                   safety: float = 1.35) -> int:
+    """Window width (multiple of 128) expected to cover a tile's slab."""
+    tile_extent = row_tile / n * box_z
+    slab = tile_extent + 2.0 * margin
+    est = n * slab / box_z * safety + 256
+    return int(-(-est // 128) * 128)
+
+
+def plan(n: int, box_z: float, margin: float, row_tile: int) -> tuple[int, int]:
+    """(window, pad) of the certified dispatchers: the pad spans at least
+    the drift-inflated margin in z (the `covered` certificate verifies it)
+    and the last row tile's remainder."""
+    window = suggest_window(n, box_z, margin=margin, row_tile=row_tile)
+    pad = max(suggest_pad(n, box_z, margin + 2.0), min(n, -n % row_tile))
+    return window, pad
+
+
+def brute_cols(pos: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """(F, 3, N) wrapped, transposed frames: the rows and columns of a
+    kernel contract's brute form (start 0, window = N)."""
+    return torch.remainder(pos, boxes[:, None, :]).transpose(1, 2).contiguous()
+
+
 def unsort_frames(arr_sorted: torch.Tensor, order0: torch.Tensor) -> torch.Tensor:
     """Scatter (F, N, ...) results from frame-0 z-order back to atom order."""
     out = torch.empty_like(arr_sorted)

@@ -24,17 +24,31 @@ def masked_histogram(
 ) -> torch.Tensor:
     """Histogram of `values[mask]` over [lo, hi]: n_bins equal bins,
     left-inclusive, the final bin right-inclusive. Returns int64 counts."""
-    dt = values.dtype
-    width = torch.tensor((hi - lo) / n_bins, dtype=dt, device=values.device)
-    thresholds = torch.tensor(lo, dtype=dt, device=values.device) + torch.arange(
-        n_bins + 1, dtype=dt, device=values.device
+    return masked_histogram_frames(values.reshape(1, -1), mask.reshape(1, -1), n_bins, lo, hi)[0]
+
+
+def masked_histogram_frames(
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    n_bins: int,
+    lo: float,
+    hi: float,
+) -> torch.Tensor:
+    """`masked_histogram` of each frame: values and mask (F, ...) give
+    (F, n_bins) int64 counts, from one bincount over frame * n_bins + bin."""
+    n_frames = values.shape[0]
+    dt, dev = values.dtype, values.device
+    width = torch.tensor((hi - lo) / n_bins, dtype=dt, device=dev)
+    thresholds = torch.tensor(lo, dtype=dt, device=dev) + torch.arange(
+        n_bins + 1, dtype=dt, device=dev
     ) * width
-    flat = values.reshape(-1)
-    m = mask.reshape(-1)
-    b = torch.searchsorted(thresholds, flat, right=True) - 1
+    flat = values.reshape(n_frames, -1)
+    m = mask.reshape(n_frames, -1)
+    b = torch.searchsorted(thresholds, flat, right=True, out_int32=True) - 1
     keep = m & (b >= 0) & (b < n_bins)
-    hist = torch.bincount(b[keep], minlength=n_bins)
-    hist[n_bins - 1] += ((flat == hi) & m).sum()
+    b += (torch.arange(n_frames, dtype=torch.int32, device=dev) * n_bins)[:, None]
+    hist = torch.bincount(b[keep], minlength=n_frames * n_bins).reshape(n_frames, n_bins)
+    hist[:, n_bins - 1] += ((flat == hi) & m).sum(dim=1)
     return hist
 
 
