@@ -11,7 +11,11 @@ Phases (each raises on failure; nothing is caught):
    paths' shapes (a 4096-water jittered lattice, 8 frames): q_tet in the
    slab form, the brute form, the straggler patch and a sparse 512-atom box
    that must take the brute tier; the 3-body angles and psi6 in the slab
-   and brute forms;
+   and brute forms; both LSI kernels in the slab and brute forms on the
+   lattice with a third of its atoms stored shifted by +/-L (so raw and
+   imaged distances differ), and a 16-member cluster in one shell of a
+   16,384-water box, where `lsi_certified` must leave the split tier for
+   the K=24 kernel (without the cluster no row of that box is incomplete);
 3. the q_tet slice: `tet_order_calc` on a 4096-water, 1024-frame box with
    one sub-population, device="cuda"; it must take the slab tier, launch
    the kernel and never call the plain version; its q on 16 frames must
@@ -20,14 +24,26 @@ Phases (each raises on failure; nothing is caught):
    the psi6 slice: `hex_order_calc` on its 2048 chain-end centers, with the
    same assertions; their angles and psi on 16 frames must match the plain
    paths `order.angles.neighbor_angles` and `order.psi6.order_param_psi`;
-   then one more call of each of the three drivers under the drivers'
-   stage clock (`orderparams.stage_times`: host gather, H2D, masks, kernel
-   stage, device stats, D2H, savetxt, bootstrap);
-5. each kernel's time per frame at its slice's own launch (F=1024) and its
-   plain version's on 64 frames of it;
+   the LSI slice: `lsi_calc` on the same box, which must take the K=24 slab
+   tier with one `lsi_window` launch, its valid flags on 16 frames equal to
+   and its values within 2e-5 of the plain path `order.lsi.lsi`; then one
+   more call of each of the four drivers under the drivers' stage clock
+   (`orderparams.stage_times`: host gather, H2D, masks, kernel stage,
+   device stats, D2H, savetxt, bootstrap); and the split tier through the
+   driver: `lsi_calc` at its default high_cut 3.7 A on 16,384 waters x 64
+   frames whose oxygens sit on `_split_traj`'s lattice (six neighbors
+   within 3.7 A on average, at most 9) must take "slab-split" and launch
+   `lsi_split_window`;
+5. each kernel's time per frame at its slice's own launch (F=1024; the
+   split kernel at 16,384 waters, F=64) and its plain version's on a few
+   frames of it;
 6. 131,072 and 1,048,576 atoms, 1 frame: each certified dispatch must take
-   the slab tier, and each kernel must equal its plain version on two row
-   tiles passed as the rows and window starts of those tiles only.
+   the slab tier (LSI at high_cut 3.7 A: "slab-split" at 131,072 atoms of
+   `_split_traj`'s lattice, the K=24 "slab" on `_lattice_traj`'s, whose
+   12-13-neighbor rows fail the split certificate, and at 1,048,576), and
+   each kernel must equal its plain
+   version on two row tiles passed as the rows and window starts of those
+   tiles only.
 
 The last line is one JSON object, {"ok": true, "device": {...}}; before it
 come a JSON line of the kernels (launches in their slice, largest error
@@ -56,24 +72,41 @@ LARGE_SIZES = (131_072, 1_048_576)
 Q_TOL = 1e-5    # float32 q; kernel and plain version do the same operations
 ANG_TOL = 1e-4  # degrees
 PSI_TOL = 1e-5
+LSI_TOL = 1e-6  # A^2, kernel against plain version (the same operations)
+LSI_REF_TOL = 2e-5  # against order.lsi.lsi, the JAX package's own bound
+N_SPLIT = 16_384  # waters: the JAX package's split-shell LSI tier
+N_FRAMES_SPLIT = 64
+N_FRAMES_SPLIT_PLAIN = 4
 # peaks of one H100 SXM (NVIDIA's data sheet, at a 700 W power limit):
 # float32 outside the tensor cores, and HBM3
 PEAK_FP32 = 67e12  # FLOP/s
 PEAK_HBM = 3.35e12  # bytes/s
-# float32 operations each kernel does: per (row, window column) pair --
-# 3 subtracts, 6 minimum-image adds, a squared length (5) -- and per row in
+# float32 operations each kernel must do: per distinct (row, column) pair
+# of its windows -- 3 subtracts, 6 minimum-image adds, a squared length (5);
+# the split kernel's two windows count as their union -- and per row in
 # its epilogue: per neighbor slot 19 (displacement, length, sqrt, 1/x,
 # scaling), per neighbor pair 10 (q), 26 (angle: cosine, clip, arccos
-# polynomial, degrees) or 24 (psi6: cosine, clip, T6, sqrt, U5, sums)
+# polynomial, degrees) or 24 (psi6: cosine, clip, T6, sqrt, U5, sums); LSI:
+# per slot 9 (sqrt; the K=24 kernel's raw squared distance from the column:
+# 3 subtracts, 5 for the length) and per gap 6 (difference, sum; difference,
+# mean, square, sum), plus 4 (final gap, mean, variance); the split kernel
+# has 13 slots, no raw distance in its epilogue, and 8 per annulus
+# candidate of its wide pass for the raw distance (RAW_FLOPS)
 PAIR_FLOPS = 14
+RAW_FLOPS = 8
 EPILOGUE_FLOPS = {"qtet_window": 4 * 19 + 6 * 10, "angles_window": 16 * 19 + 120 * 26,
-                  "psi6_window": 24 * 19 + 276 * 24}
+                  "psi6_window": 24 * 19 + 276 * 24, "lsi_window": 24 * 9 + 23 * 6 + 4,
+                  "lsi_split_window": 13 * 1 + 12 * 6 + 4}
 SOURCES = {"qtet_window": "waterorderlib_tpu_torch/ops/cuda/csrc/qtet_window.cu",
            "angles_window": "waterorderlib_tpu_torch/ops/cuda/csrc/nbr_window.cu",
-           "psi6_window": "waterorderlib_tpu_torch/ops/cuda/csrc/nbr_window.cu"}
+           "psi6_window": "waterorderlib_tpu_torch/ops/cuda/csrc/nbr_window.cu",
+           "lsi_window": "waterorderlib_tpu_torch/ops/cuda/csrc/lsi_window.cu",
+           "lsi_split_window": "waterorderlib_tpu_torch/ops/cuda/csrc/lsi_window.cu"}
 REPLACES = {"qtet_window": "waterorderlib_tpu/ops/pallas/qtet2.py:111",
             "angles_window": "waterorderlib_tpu/ops/pallas/angles_kernel.py:159",
-            "psi6_window": "waterorderlib_tpu/ops/pallas/psi6_kernel.py:163"}
+            "psi6_window": "waterorderlib_tpu/ops/pallas/psi6_kernel.py:163",
+            "lsi_window": "waterorderlib_tpu/ops/pallas/lsi_kernel.py:177",
+            "lsi_split_window": "waterorderlib_tpu/ops/pallas/lsi_slab2.py:235"}
 
 
 def _check(cond: bool, what: str) -> None:
@@ -89,8 +122,10 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _lattice_traj(n, f, seed):
-    """bench.py-style jittered lattice at water density: (f, n, 3) f32."""
+def _lattice_traj(n, f, seed, shifted=False):
+    """bench.py-style jittered lattice at water density: (f, n, 3) f32.
+    With `shifted`, a third of the atoms of each frame are stored shifted by
+    +/-L along random axes (the same wrapped frame; other raw distances)."""
     import numpy as np
     from waterorderlib_tpu_torch.io.synthetic import water_oxygen_lattice
 
@@ -100,6 +135,10 @@ def _lattice_traj(n, f, seed):
     pos = np.stack(
         [np.mod(base + rs.normal(scale=0.1, size=base.shape), box_len) for _ in range(f)]
     ).astype(np.float32)
+    if shifted:
+        some = rs.uniform(size=pos.shape[:2]) < 1.0 / 3.0
+        pos = pos + rs.randint(-1, 2, size=pos.shape) * some[..., None] * np.float32(box_len)
+        pos = pos.astype(np.float32)
     boxes = np.tile(np.array([box_len] * 3, np.float32), (f, 1))
     return pos, boxes
 
@@ -118,16 +157,71 @@ def _ms(fn, args, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def _bound_ms(name, args, out_bytes_per_row):
+def _split_traj(n, f, seed):
+    """(f, n, 3) f32 positions and (f, 3) boxes of the split-tier checks:
+    a cubic lattice at water density whose z rises by one spacing across x
+    (still periodic), jittered by 0.1 spacings and 0.1 A more per frame. Six
+    neighbors lie within 3.7 A on average and never more than 9, so the
+    split kernel's 12 in-shell slots hold every shell (`_lattice_traj`'s
+    0.35-spacing jitter puts 12-13 in some). The rise keeps the lattice's z
+    layers from lining up with the row tiles' z-slabs, which then hold up
+    to four layers where the windows are sized for the mean density."""
+    import numpy as np
+
+    box_len = (n / 0.033456) ** (1.0 / 3.0)
+    m = int(np.ceil(n ** (1.0 / 3.0)))
+    spacing = box_len / m
+    rs = np.random.RandomState(seed)
+    i, j, k = np.meshgrid(*(np.arange(m),) * 3, indexing="ij")
+    sites = np.stack([i, j, k + i / m], -1).reshape(-1, 3) * spacing
+    base = sites[rs.permutation(len(sites))[:n]] + rs.uniform(-0.1, 0.1, (n, 3)) * spacing
+    pos = np.stack([np.mod(base + rs.normal(scale=0.1, size=base.shape), box_len)
+                    for _ in range(f)]).astype(np.float32)
+    return pos, np.full((f, 3), box_len, np.float32)
+
+
+def _bytes_in(rows, cols):
+    """Bytes of rows and columns, rows counted only where they are not a
+    view into the columns."""
+    n = 4 * cols.numel()
+    if rows.data_ptr() < cols.data_ptr() or rows.data_ptr() >= cols.data_ptr() + 4 * cols.numel():
+        n += 4 * rows.numel()
+    return n
+
+
+def _pairs(args, split):
+    """(row, column) pairs whose distance a launch needs: each row against
+    its tile's window; for the split kernel against the union of its narrow
+    and wide windows, each distinct pair once."""
+    import torch
+
+    rows, _, starts, _, w, rt = args[:6]
+    F, _, n_rows = rows.shape
+    tile_rows = (n_rows - torch.arange(starts.numel(), device=starts.device) * rt).clamp(max=rt)
+    width = torch.full_like(tile_rows, w)
+    if split:
+        s_n, s_w, w_w = starts.long(), args[8].long(), args[9]
+        overlap = (torch.minimum(s_n + w, s_w + w_w) - torch.maximum(s_n, s_w)).clamp(min=0)
+        width = w + w_w - overlap
+    return F * int((tile_rows * width).sum())
+
+
+def _bound_ms(name, args, out_bytes_per_row, annulus=0):
     """Least time of one launch on these inputs: the larger of its float32
     operations over the peak rate and its bytes (each input read once, each
-    output written once) over the memory rate. Returns (ms, bound_by)."""
-    rows, cols, starts, boxes, w = args[:5]
+    output written once) over the memory rate. `annulus`: the split LSI
+    kernel's (high, high+3.7] candidates over all rows and frames, which
+    also take a raw distance. Returns (ms, bound_by)."""
+    rows, cols, starts, boxes = args[:4]
     F, _, n_rows = rows.shape
-    flops = F * n_rows * (w * PAIR_FLOPS + EPILOGUE_FLOPS[name])
-    in_bytes = 4 * (cols.numel() + starts.numel() + boxes.numel())
-    if rows.data_ptr() < cols.data_ptr() or rows.data_ptr() >= cols.data_ptr() + 4 * cols.numel():
-        in_bytes += 4 * rows.numel()  # rows are not a view into the columns
+    split = name == "lsi_split_window"
+    in_bytes = _bytes_in(rows, cols) + 4 * (starts.numel() + boxes.numel())
+    if name.startswith("lsi"):
+        in_bytes += _bytes_in(args[6], args[7])  # the raw rows and columns
+    if split:
+        in_bytes += 4 * args[8].numel()
+    flops = (_pairs(args, split) * PAIR_FLOPS + F * n_rows * EPILOGUE_FLOPS[name]
+             + annulus * RAW_FLOPS)
     t_ops = flops / PEAK_FP32 * 1e3
     t_bytes = (in_bytes + F * n_rows * out_bytes_per_row) / PEAK_HBM * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -155,17 +249,25 @@ def _cmp(name, kernel, plain, args, tols):
     return max(errs)
 
 
-def _two_tiles(prep, n, pad, rt):
-    """Rows and window starts of the first and the last row tile only (the
-    boundary tiles, whose windows reach into the pad copies)."""
+def _two_tiles(args, n_tiles, n, rt, cut_at):
+    """A launch of the first and the last row tile only (the boundary
+    tiles, whose windows reach into the pad copies): `args` with the rows
+    (and raw rows) at positions `cut_at[0]` cut to those tiles' rows and
+    the window starts at `cut_at[1]` cut to those two tiles. Returns (the
+    arguments, the tiles' rows as indices into the full rows)."""
     import torch
 
-    last = prep.n_tiles - 1
-    sel = torch.cat([torch.arange(0, rt), torch.arange(last * rt, min(n, (last + 1) * rt))])
-    sel = sel.to(prep.ext_t.device)
-    rows = prep.ext_t[:, :, pad : pad + n][:, :, sel].contiguous()
-    starts = prep.starts[[0, last]].contiguous()
-    return rows, starts, sel
+    rows_at, starts_at = cut_at
+    last = n_tiles - 1
+    dev = args[0].device
+    sel = torch.cat([torch.arange(0, rt), torch.arange(last * rt, min(n, (last + 1) * rt))]).to(dev)
+    tiles = torch.tensor([0, last], device=dev)
+    sub = list(args)
+    for i in rows_at:
+        sub[i] = args[i][:, :, sel].contiguous()
+    for i in starts_at:
+        sub[i] = args[i][tiles].contiguous()
+    return tuple(sub), sel
 
 
 def _slab_args(pos, boxes, margin, rt, high, qtet):
@@ -175,9 +277,9 @@ def _slab_args(pos, boxes, margin, rt, high, qtet):
 
     n = pos.shape[1]
     window, pad = slab.plan(n, float(boxes[0, 2]), margin, rt)
-    prep = slab.slab_prep_traj(pos, boxes, margin, rt, window, pad)
-    _check(bool(prep.covered.all()), f"slab prep not covered (n={n}, margin={margin})")
-    args = (prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts, boxes, prep.w, rt,
+    prep = slab.slab_prep_traj(pos, boxes, ((margin, window),), rt, pad)
+    _check(bool(prep.covered[0].all()), f"slab prep not covered (n={n}, margin={margin})")
+    args = (prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts[0], boxes, prep.ws[0], rt,
             0.0, high * high)
     return prep, n, pad, args + ((margin * margin,) if qtet else ())
 
@@ -190,6 +292,71 @@ def _brute_args(pos, boxes, rt, high, qtet):
     ext = slab.brute_cols(pos, boxes)
     starts = torch.zeros(-(-n // rt), dtype=torch.int32, device=pos.device)
     return (ext, ext, starts, boxes, n, rt, 0.0, high * high) + ((high * high,) if qtet else ())
+
+
+LSI_HIGH, LSI_OUTER = 3.7, 3.7 + 3.7
+LSI_SCALARS = (0.0, LSI_HIGH, LSI_OUTER * LSI_OUTER)
+SPLIT_SCALARS = (0.0, LSI_HIGH, LSI_HIGH * LSI_HIGH, LSI_OUTER * LSI_OUTER)
+
+
+def _lsi_slab_args(pos, boxes):
+    """(prep, pad, raw, lsi_window arguments) of the K=24 kernel's slab
+    form, as `lsi_certified` plans it."""
+    from waterorderlib_tpu_torch.ops.cuda import slab
+
+    n = pos.shape[1]
+    window, pad = slab.plan(n, float(boxes[0, 2]), LSI_OUTER, 128)
+    prep = slab.slab_prep_traj(pos, boxes, ((LSI_OUTER, window),), 128, pad)
+    _check(bool(prep.covered[0].all()), f"LSI slab prep not covered (n={n})")
+    raw = slab.raw_ext_t(pos, prep.order0, pad)
+    return prep, pad, raw, (prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts[0], boxes,
+                            prep.ws[0], 128, raw[:, :, pad : pad + n], raw, *LSI_SCALARS)
+
+
+def _lsi_split_args(pos, boxes):
+    """(prep, pad, raw, lsi_split_window arguments) of the split kernel's
+    narrow and wide windows, as `lsi_certified` plans them."""
+    from waterorderlib_tpu_torch.ops.cuda import slab
+
+    n, box_z = pos.shape[1], float(boxes[0, 2])
+    window, pad = slab.plan(n, box_z, LSI_OUTER, 128)
+    w_narrow = slab.suggest_window(n, box_z, margin=LSI_HIGH, row_tile=128)
+    prep = slab.slab_prep_traj(pos, boxes, ((LSI_HIGH, w_narrow), (LSI_OUTER, window)), 128, pad)
+    _check(all(bool(c.all()) for c in prep.covered), f"LSI split prep not covered (n={n})")
+    raw = slab.raw_ext_t(pos, prep.order0, pad)
+    return prep, pad, raw, (prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts[0], boxes,
+                            prep.ws[0], 128, raw[:, :, pad : pad + n], raw, prep.starts[1],
+                            prep.ws[1], *SPLIT_SCALARS)
+
+
+def _lsi_brute_args(pos, boxes, split):
+    import torch
+    from waterorderlib_tpu_torch.ops.cuda import slab
+
+    n = pos.shape[1]
+    ext, raw = slab.brute_cols(pos, boxes), slab.brute_raw(pos)
+    starts = torch.zeros(-(-n // 128), dtype=torch.int32, device=pos.device)
+    if split:
+        return (ext, ext, starts, boxes, n, 128, raw, raw, starts, n, *SPLIT_SCALARS)
+    return (ext, ext, starts, boxes, n, 128, raw, raw, *LSI_SCALARS)
+
+
+def _annulus(pos, boxes):
+    """(high, high+3.7] neighbors over all rows and frames: the candidates
+    of the split kernel's raw-distance pass."""
+    from waterorderlib_tpu_torch.ops import pairs
+
+    return sum(int(pairs.neighbor_counts(p, p, b, LSI_HIGH, LSI_OUTER, row_block=64).sum())
+               for p, b in zip(pos, boxes))
+
+
+# arguments of each kernel that carry a leading frame axis
+FRAME_ARGS = {"qtet_window": (0, 1, 3), "angles_window": (0, 1, 3), "psi6_window": (0, 1, 3),
+              "lsi_window": (0, 1, 3, 6, 7), "lsi_split_window": (0, 1, 3, 6, 7)}
+
+
+def _first_frames(name, args, nf):
+    return tuple(a[:nf] if i in FRAME_ARGS[name] else a for i, a in enumerate(args))
 
 
 def _stages(label, driver_fn):
@@ -207,29 +374,31 @@ def _stages(label, driver_fn):
     return t
 
 
-def _slice(label, driver_fn, counters, tier_of, files, n_results):
-    """Run a driver with its kernel's counters set to 0; check tier,
-    launches, plain calls, files and finite statistics. Returns launches."""
+def _slice(label, driver_fn, kernels, name, tier_of, want_tier, files, n_results):
+    """Run a driver with every kernel's and plain version's counter set to
+    0; check tier, the launches of kernel `name`, that no plain version was
+    called, files and finite statistics. Returns the launches."""
     import numpy as np
     import torch
 
-    kernel, plain = counters
+    kernel = kernels[name][0]
     with tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.synchronize()
-        kernel.launches = 0
-        plain.calls = 0
+        for k, p in kernels.values():
+            k.launches, p.calls = 0, 0
         t0 = time.perf_counter()
         res = driver_fn(out_dir)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, plain_calls, tier = kernel.launches, plain.calls, tier_of()
+        launches, tier = kernel.launches, tier_of()
+        plain_calls = sum(p.calls for _, p in kernels.values())
         hists = [np.loadtxt(os.path.join(out_dir, f)) for f in files]
     print(f"[slice] {label}: tier={tier} {kernel.__name__} launches={launches} "
           f"plain calls={plain_calls} wall={wall:.3f} s "
           f"means={[np.asarray(r[0]).tolist() for r in res]}", flush=True)
-    _check(tier == "slab", f"{label} took tier {tier}, not slab")
+    _check(tier == want_tier, f"{label} took tier {tier}, not {want_tier}")
     _check(launches > 0, f"{label} never launched {kernel.__name__}")
-    _check(plain_calls == 0, f"{label} called the plain version")
+    _check(plain_calls == 0, f"{label} called a plain version")
     _check(all(h.shape == (500, 2) for h in hists), f"{label}: histogram files are not (500, 2)")
     _check(all(int(h[:, 1].sum()) > 0 for h in hists), f"{label}: empty histogram")
     _check(len(res) == n_results, f"{label}: {len(res)} results, not {n_results}")
@@ -250,9 +419,11 @@ def main() -> int:
     import waterorderlib_tpu_torch
     from waterorderlib_tpu_torch.drivers import orderparams
     from waterorderlib_tpu_torch.io.synthetic import make_water_box
+    from waterorderlib_tpu_torch.io.trajectory import Trajectory
     from waterorderlib_tpu_torch.ops import pairs
-    from waterorderlib_tpu_torch.ops.cuda import angles, build, psi6, qtet2
+    from waterorderlib_tpu_torch.ops.cuda import angles, build, lsi, psi6, qtet2
     from waterorderlib_tpu_torch.order import angles as angles_ref
+    from waterorderlib_tpu_torch.order import lsi as lsi_ref
     from waterorderlib_tpu_torch.order import psi6 as psi6_ref
     from waterorderlib_tpu_torch.order import qtet
 
@@ -266,8 +437,8 @@ def main() -> int:
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}",
           flush=True)
     t0 = time.perf_counter()
-    build.build_all(["qtet_window", "nbr_window"])
-    print(f"[build] qtet_window.cu and nbr_window.cu built in parallel in "
+    build.build_all(["qtet_window", "nbr_window", "lsi_window"])
+    print(f"[build] qtet_window.cu, nbr_window.cu and lsi_window.cu built in parallel in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
@@ -275,6 +446,13 @@ def main() -> int:
                 print(f"[ptxas] {name}: {line.strip()}", flush=True)
     dev = torch.device("cuda")
     errs = {k: [] for k in SOURCES}
+    kernels = {
+        "qtet_window": (qtet2.q_window, qtet2.q_window_plain),
+        "angles_window": (angles.angles_window, angles.angles_window_plain),
+        "psi6_window": (psi6.psi6_window, psi6.psi6_window_plain),
+        "lsi_window": (lsi.lsi_window, lsi.lsi_window_plain),
+        "lsi_split_window": (lsi.lsi_split_window, lsi.lsi_split_window_plain),
+    }
 
     # 2. kernels against plain versions, at the main paths' shapes
     pos_np, boxes_np = _lattice_traj(N_WATERS, N_FRAMES_CMP, seed=0)
@@ -322,6 +500,59 @@ def main() -> int:
         errs["angles_window"].append(_cmp(label, a_k, a_p, args_fn(4.5, 3.413), (ANG_TOL, 0)))
         errs["psi6_window"].append(_cmp(label, p_k, p_p, args_fn(7.0, 7.0), (PSI_TOL, 0)))
 
+    # both LSI kernels on the lattice with a third of the atoms stored
+    # shifted by +/-L, so that the next-shell pick reads raw distances that
+    # differ from the imaged ones
+    l_k, l_p = kernels["lsi_window"]
+    s_k, s_p = kernels["lsi_split_window"]
+    sh_np, _ = _lattice_traj(N_WATERS, N_FRAMES_CMP, seed=0, shifted=True)
+    sh = torch.from_numpy(sh_np).to(dev)
+    lsi_tols = (LSI_TOL, 0, 0, 0)
+    for label, k24_args, split_args in (
+            ("slab form, +/-L shifts", _lsi_slab_args(sh, boxes)[3], _lsi_split_args(sh, boxes)[3]),
+            ("brute form, +/-L shifts", _lsi_brute_args(sh, boxes, False),
+             _lsi_brute_args(sh, boxes, True))):
+        errs["lsi_window"].append(_cmp(label, l_k, l_p, k24_args, lsi_tols))
+        errs["lsi_split_window"].append(_cmp(label, s_k, s_p, split_args, lsi_tols))
+    n_differ = int((l_k(*_lsi_brute_args(sh, boxes, False))[0]
+                    != s_k(*_lsi_brute_args(sh, boxes, True))[0]).sum())
+    print(f"[kernel] +/-L shifts: K=24 and split LSI differ on {n_differ} of "
+          f"{N_FRAMES_CMP * N_WATERS} rows (the next-shell pick among 24 against all)", flush=True)
+
+    # count certificate: a 16-member cluster in one 3.7 A shell of a box on
+    # the split tier; the split kernel flags it and the K=24 kernel serves.
+    # Without the cluster no row of the box is incomplete
+    cl_np, cl_boxes_np = _split_traj(N_SPLIT, 1, seed=7)
+    clean = torch.from_numpy(cl_np.copy()).to(dev)
+    incomplete_clean = int(s_k(*_lsi_split_args(clean, torch.from_numpy(cl_boxes_np).to(dev))[3])
+                           [3].sum())
+    _check(incomplete_clean == 0, f"cluster box without its cluster: {incomplete_clean} rows "
+           "incomplete")
+    rs_cl = np.random.RandomState(7)
+    cluster = cl_np[0, 0] + rs_cl.normal(scale=1.2, size=(16, 3))
+    cl_np[0, -16:] = np.clip(cluster, 0.0, cl_boxes_np[0, 0] - 1e-3)
+    cl, cl_boxes = torch.from_numpy(cl_np).to(dev), torch.from_numpy(cl_boxes_np).to(dev)
+    _check(lsi.split_tier(N_SPLIT, float(cl_boxes[0, 2]), LSI_HIGH), "16,384 waters: no split tier")
+    incomplete = int(s_k(*_lsi_split_args(cl, cl_boxes)[3])[3].sum())
+    before = (l_k.launches, s_k.launches)
+    got = lsi.lsi_certified(cl, cl_boxes)
+    ran = (l_k.launches - before[0], s_k.launches - before[1])
+    # the slab form's pad copies hold coordinates shifted by +/-L, so its
+    # imaged displacements round apart from the brute form's: the two forms
+    # agree to the reference tolerance, not bit for bit
+    want = l_p(*_lsi_brute_args(cl, cl_boxes, False))
+    err_cl = float((got[0] - want[0]).abs().max())
+    print(f"[kernel] 16-member cluster, {N_SPLIT} waters: split rows incomplete={incomplete} "
+          f"(0 without the cluster), "
+          f"tier={lsi.last_tier}, launches K=24/split={ran}, max|d lsi| vs plain K=24 brute="
+          f"{err_cl:.3e}", flush=True)
+    _check(incomplete > 0 and lsi.last_tier == "slab" and ran == (1, 1),
+           "the count certificate did not move the cluster box to the K=24 kernel")
+    _check(err_cl <= LSI_REF_TOL and bool((got[1] == want[1]).all())
+           and bool((got[2] == want[2]).all()),
+           f"cluster box: K=24 slab result differs from its plain brute form ({err_cl})")
+    del sh, cl, cl_boxes, clean, got, want
+
     # 3. the q_tet slice, through the user's entry point
     top, traj = make_water_box(N_WATERS, n_frames=N_FRAMES_SLICE, seed=0)
     wat_inds, _, _ = top.get_wat_inds()
@@ -335,11 +566,14 @@ def main() -> int:
             top, traj, sub_inds=sub_inds, n_pops=1, output_dir=d, output_2d=True, device="cuda"),
         "hex_order_calc": lambda d: orderparams.hex_order_calc(
             top, traj, sub_inds=end_sub, n_pops=1, output_dir=d, device="cuda"),
+        "lsi_calc": lambda d: orderparams.lsi_calc(
+            top, traj, sub_inds=sub_inds, n_pops=1, output_dir=d, device="cuda"),
     }
     launches = {}
     launches["qtet_window"] = _slice(
         f"tet_order_calc {N_WATERS} waters x {N_FRAMES_SLICE} frames", drivers["tet_order_calc"],
-        (q_k, q_p), lambda: qtet2.last_tier, ["qDistribution_0.txt", "qDistribution_1.txt"], 2,
+        kernels, "qtet_window", lambda: qtet2.last_tier, "slab",
+        ["qDistribution_0.txt", "qDistribution_1.txt"], 2,
     )
     wat_pos = torch.as_tensor(traj.positions[:, wat_inds, :], dtype=torch.float32, device=dev)
     end_pos = torch.as_tensor(traj.positions[:, end_inds, :], dtype=torch.float32, device=dev)
@@ -362,12 +596,12 @@ def main() -> int:
     # 4. the 3-body and psi6 slices, through the user's entry points
     launches["angles_window"] = _slice(
         f"three_body_calc {N_WATERS} waters x {N_FRAMES_SLICE} frames",
-        drivers["three_body_calc"], (a_k, a_p), lambda: angles.last_tier,
+        drivers["three_body_calc"], kernels, "angles_window", lambda: angles.last_tier, "slab",
         ["3bDistribution_0.txt", "3bDistribution_1.txt"], 5,
     )
     launches["psi6_window"] = _slice(
         f"hex_order_calc {len(end_inds)} chain-end centers x {N_FRAMES_SLICE} frames",
-        drivers["hex_order_calc"], (p_k, p_p), lambda: psi6.last_tier,
+        drivers["hex_order_calc"], kernels, "psi6_window", lambda: psi6.last_tier, "slab",
         ["psiDistribution_0.txt", "psiDistribution_1.txt"], 2,
     )
     for label, fn, p in (("angles", angles.neighbor_pair_angles_certified, wat_pos),
@@ -404,8 +638,54 @@ def main() -> int:
     _check(err_psi <= 5e-5, f"slice psi: max|d| {err_psi} > 5e-5")
     del ang_all, cnt_all, valid_all
 
+    # the LSI slice, through the user's entry point: the K=24 slab tier
+    launches["lsi_window"] = _slice(
+        f"lsi_calc {N_WATERS} waters x {N_FRAMES_SLICE} frames", drivers["lsi_calc"],
+        kernels, "lsi_window", lambda: lsi.last_tier, "slab",
+        ["lsiDistribution_0.txt", "lsiDistribution_1.txt"], 2,
+    )
+    _check(launches["lsi_window"] == 1, f"lsi_calc launched lsi_window {launches['lsi_window']} times")
+    lsi.lsi_certified(wat_pos, wat_boxes)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        lsi_all, lsi_ok, lsi_cnt = lsi.lsi_certified(wat_pos, wat_boxes)
+    torch.cuda.synchronize()
+    fps = 3 * N_FRAMES_SLICE / (time.perf_counter() - t0)
+    err_lsi = 0.0
+    for f in range(16):
+        ref = lsi_ref.lsi(wat_pos[f], wat_pos[f], wat_boxes[f], 0.0, LSI_HIGH)
+        _check(bool((lsi_ok[f] == ref.valid).all()), f"frame {f}: LSI valid flags differ")
+        _check(bool((lsi_cnt[f] == ref.count).all()), f"frame {f}: LSI counts differ")
+        err_lsi = max(err_lsi, float((lsi_all[f] - ref.lsi).abs().max()))
+    print(f"[slice] lsi stage (certified dispatch, tier={lsi.last_tier}, F={N_FRAMES_SLICE}): "
+          f"{fps:.1f} frames/s; 16 frames vs plain path order.lsi.lsi: valid and counts equal, "
+          f"max|d lsi|={err_lsi:.3e} A^2", flush=True)
+    _check(err_lsi <= LSI_REF_TOL, f"slice lsi: max|d| {err_lsi} > {LSI_REF_TOL}")
+    del lsi_all, lsi_ok, lsi_cnt
+
     for label, drive in drivers.items():
         _stages(label, drive)
+
+    # the split tier through the user's entry point, at the default
+    # high_cut: each water of a synthetic box moved rigidly so that its
+    # oxygen sits on `_split_traj`'s lattice (the same box edge)
+    top_s, traj_s = make_water_box(N_SPLIT, n_frames=N_FRAMES_SPLIT, seed=0)
+    wat_s = top_s.get_wat_inds()[0]
+    ox, _ = _split_traj(N_SPLIT, N_FRAMES_SPLIT, seed=0)
+    waters = traj_s.positions.reshape(N_FRAMES_SPLIT, N_SPLIT, 3, 3)
+    traj_s = Trajectory((waters - waters[:, :, :1] + ox[:, :, None]).reshape(
+        N_FRAMES_SPLIT, 3 * N_SPLIT, 3), traj_s.boxes)
+    launches["lsi_split_window"] = _slice(
+        f"lsi_calc {N_SPLIT} waters x {N_FRAMES_SPLIT} frames (split lattice)",
+        lambda d: orderparams.lsi_calc(top_s, traj_s, sub_inds=[[wat_s[::2]]] * N_FRAMES_SPLIT,
+                                       n_pops=1, output_dir=d, device="cuda"),
+        kernels, "lsi_split_window", lambda: lsi.last_tier, "slab-split",
+        ["lsiDistribution_0.txt", "lsiDistribution_1.txt"], 2,
+    )
+    split_pos = torch.as_tensor(traj_s.positions[:, wat_s, :], dtype=torch.float32, device=dev)
+    split_boxes = torch.as_tensor(traj_s.boxes, dtype=torch.float32, device=dev)
+    del top_s, traj_s
 
     # 5. each kernel's time at its slice's own launch (all 1024 frames, slab
     # form, as the certified dispatch plans it); plain version on 64 frames
@@ -415,22 +695,28 @@ def main() -> int:
                           4 * 128 + 4, ANG_TOL),
         "psi6_window": (p_k, p_p, _slab_args(end_pos, wat_boxes, 7.0, 128, 7.0, False)[3],
                         4 + 4, PSI_TOL),
+        "lsi_window": (l_k, l_p, _lsi_slab_args(wat_pos, wat_boxes)[3], 4 + 1 + 4, LSI_TOL),
+        "lsi_split_window": (s_k, s_p, _lsi_split_args(split_pos, split_boxes)[3],
+                             4 + 1 + 4 + 1, LSI_TOL),
     }
     times = {}
     for name, (kern, plain, args, out_bytes, tol) in mains.items():
-        sub = (args[0][:N_FRAMES_PLAIN], args[1][:N_FRAMES_PLAIN], args[2],
-               args[3][:N_FRAMES_PLAIN], *args[4:])
-        errs[name].append(_cmp(f"slab form, slice frames 0-{N_FRAMES_PLAIN - 1}", kern, plain,
-                               sub, (tol, 0)))
-        ms = _ms(kern, args, 10) / N_FRAMES_SLICE
-        plain_ms = _ms(plain, sub, 2) / N_FRAMES_PLAIN
-        bound, bound_by = _bound_ms(name, args, out_bytes)
-        times[name] = (ms, plain_ms, bound / N_FRAMES_SLICE, bound_by)
+        n_frames = args[0].shape[0]
+        nf = N_FRAMES_SPLIT_PLAIN if name == "lsi_split_window" else N_FRAMES_PLAIN
+        sub = _first_frames(name, args, nf)
+        errs[name].append(_cmp(f"slab form, slice frames 0-{nf - 1}", kern, plain, sub,
+                               (tol, 0, 0, 0)))
+        ms = _ms(kern, args, 10) / n_frames
+        plain_ms = _ms(plain, sub, 2) / nf
+        annulus = _annulus(split_pos, split_boxes) if name == "lsi_split_window" else 0
+        bound, bound_by = _bound_ms(name, args, out_bytes, annulus)
+        times[name] = (ms, plain_ms, bound / n_frames, bound_by)
+        width = f"w={args[4]}" + (f"/{args[9]}" if name == "lsi_split_window" else "")
         print(f"[time] {name} slab form at its slice's launch ({args[0].shape[2]} rows, "
-              f"w={args[4]}): kernel {ms:.5f} ms/frame (F={N_FRAMES_SLICE}), plain "
-              f"{plain_ms:.5f} ms/frame (F={N_FRAMES_PLAIN}), bound {bound / N_FRAMES_SLICE:.5f} "
+              f"{width}): kernel {ms:.5f} ms/frame (F={n_frames}), plain "
+              f"{plain_ms:.5f} ms/frame (F={nf}), bound {bound / n_frames:.5f} "
               f"ms/frame ({bound_by}); {card}", flush=True)
-    del wat_pos, end_pos
+    del wat_pos, end_pos, split_pos, split_boxes
 
     # 6. 131k and 1M atoms: the certified dispatch takes the slab tier, and
     # each kernel equals its plain version on two boundary row tiles
@@ -455,8 +741,7 @@ def main() -> int:
             tier = tier_of()
             _check(tier == "slab", f"{name} at {n_big} atoms took tier {tier}, not slab")
             prep, nn, pad, args = _slab_args(bp, bb, margin, rt_, high, is_q)
-            rows, starts, sel = _two_tiles(prep, nn, pad, rt_)
-            sub = (rows, args[1], starts, *args[3:])
+            sub, sel = _two_tiles(args, prep.n_tiles, nn, rt_, ((0,), (2,)))
             err = _cmp(f"{n_big} atoms, 2 row tiles (w={args[4]})", kern, plain, sub, tols)
             errs[name].append(err)
             k_out = kern(*sub)[0]
@@ -464,13 +749,56 @@ def main() -> int:
             err_full = float((full[0][:, atoms] - k_out).abs().max())
             _check(err_full <= tols[0], f"{name} at {n_big}: full launch vs tiles {err_full}")
             ms = _ms(kern, args, 3)
+            plain_ms = _ms(plain, sub, 1) * prep.n_tiles / 2
             bound, bound_by = _bound_ms(name, args, mains[name][3])
             print(f"[large] {name} {n_big} atoms: tier={tier} certified call {wall:.3f} s, "
                   f"w={args[4]}, full launch vs 2-tile launch max|d|={err_full:.3e}; kernel "
-                  f"{ms:.3f} ms/frame, bound {bound:.3f} ms/frame ({bound_by}); {card}",
+                  f"{ms:.3f} ms/frame, plain {plain_ms:.1f} ms/frame (2 row tiles timed, "
+                  f"scaled by {prep.n_tiles}/2), bound {bound:.3f} ms/frame ({bound_by}); {card}",
                   flush=True)
             del full, prep, args, sub, k_out
-        del bp, bb
+
+        # LSI at high_cut 3.7: at 131,072 atoms the split tier on
+        # `_split_traj`'s lattice, and the K=24 kernel on `_lattice_traj`'s,
+        # where the count certificate fails; at 1,048,576 the K=24 kernel
+        lsi_cases = [("lsi_window", bp, "slab")]
+        if n_big == LARGE_SIZES[0]:
+            sp_np, _ = _split_traj(n_big, 1, seed=n_big % 997)
+            lsi_cases.insert(0, ("lsi_split_window", torch.from_numpy(sp_np).to(dev),
+                                 "slab-split"))
+        for name, lp, want_tier in lsi_cases:
+            split = name == "lsi_split_window"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = lsi.lsi_certified(lp, bb)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            _check(lsi.last_tier == want_tier,
+                   f"lsi_certified at {n_big} atoms ({name}) took tier {lsi.last_tier}, "
+                   f"not {want_tier}")
+            prep, pad, raw, args = _lsi_split_args(lp, bb) if split else _lsi_slab_args(lp, bb)
+            kern, plain = kernels[name]
+            sub, sel = _two_tiles(args, prep.n_tiles, n_big, 128,
+                                  ((0, 6), (2, 8) if split else (2,)))
+            width = f"w={args[4]}" + (f"/{args[9]}" if split else "")
+            errs[name].append(_cmp(f"{n_big} atoms, 2 row tiles ({width})", kern, plain, sub,
+                                   (LSI_TOL, 0, 0, 0)))
+            k_out = kern(*sub)
+            atoms = prep.order0[sel]  # the tiles' rows in the original atom order
+            err_full = float((full[0][:, atoms] - k_out[0]).abs().max())
+            _check(err_full <= LSI_TOL and bool((full[1][:, atoms] == k_out[1]).all()),
+                   f"{name} at {n_big}: full launch vs tiles {err_full}")
+            ms = _ms(kern, args, 3)
+            plain_ms = _ms(plain, sub, 1) * prep.n_tiles / 2
+            bound, bound_by = _bound_ms(name, args, 10 if split else 9,
+                                        _annulus(lp, bb) if split else 0)
+            print(f"[large] {name} {n_big} atoms: tier={lsi.last_tier} "
+                  f"certified call {wall:.3f} s, {width}, full launch vs 2-tile launch "
+                  f"max|d|={err_full:.3e}; kernel {ms:.3f} ms/frame, plain {plain_ms:.1f} "
+                  f"ms/frame (2 row tiles timed, scaled by {prep.n_tiles}/2), bound "
+                  f"{bound:.3f} ms/frame ({bound_by}); {card}", flush=True)
+            del full, prep, raw, args, sub, k_out
+        del bp, bb, lsi_cases, lp
         torch.cuda.empty_cache()
 
     # no jax, and nothing of the JAX package

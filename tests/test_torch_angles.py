@@ -30,6 +30,10 @@ from waterorderlib_tpu_torch.ops.cuda import window
 from waterorderlib_tpu_torch.order import angles as tangles
 from waterorderlib_tpu_torch.order import psi6 as tpsi6
 
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's spinning thread pools stall when they outnumber the cores
+torch.set_num_threads(1)
+
 T = torch.from_numpy
 ANG_TOL = 1e-4   # degrees
 PSI_TOL = 1e-5
@@ -109,8 +113,8 @@ def test_pair_validity_matches_jax():
 def _prep_from_jax(pos, boxes, margin, window, pad):
     jp = jslab.slab_prep_traj(jnp.asarray(pos), jnp.asarray(boxes), margin, 128, window, pad)
     return interop.slab_prep_from_jax(
-        np.asarray(jp.ext_t), np.asarray(jp.starts), np.asarray(jp.covered),
-        np.asarray(jp.order0), jp.w, jp.n_tiles, "cpu",
+        np.asarray(jp.ext_t), (np.asarray(jp.starts),), (np.asarray(jp.covered),),
+        np.asarray(jp.order0), (jp.w,), jp.n_tiles, "cpu",
     )
 
 
@@ -127,8 +131,8 @@ def test_angles_contract_matches_pallas_kernel():
     assert bool(np.asarray(cov_w).all())
     prep = _prep_from_jax(pos, boxes, 4.5, window, pad)
     before = tak.angles_window_plain.calls
-    ang, cnt = tak.angles_window(prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts,
-                                 T(boxes), prep.w, 128, 0.0, 3.413 ** 2)
+    ang, cnt = tak.angles_window(prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts[0],
+                                 T(boxes), prep.ws[0], 128, 0.0, 3.413 ** 2)
     assert tak.angles_window_plain.calls == before + 1  # CPU tensor -> plain version
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_w).astype(np.int32))
     np.testing.assert_array_equal(tak.pair_validity(cnt).numpy(),
@@ -147,8 +151,8 @@ def test_psi6_contract_matches_pallas_kernel():
         )
     assert bool(np.asarray(cov_w).all())
     prep = _prep_from_jax(pos, boxes, 7.0, window, pad)
-    psi, cnt = tpk.psi6_window(prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts,
-                               T(boxes), prep.w, 128, 0.0, 49.0)
+    psi, cnt = tpk.psi6_window(prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts[0],
+                               T(boxes), prep.ws[0], 128, 0.0, 49.0)
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_w).astype(np.int32))
     np.testing.assert_allclose(psi.numpy(), np.asarray(psi_w), atol=PSI_TOL)
 

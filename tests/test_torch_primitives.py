@@ -16,6 +16,10 @@ from waterorderlib_tpu_torch.core import pbc as tpbc
 from waterorderlib_tpu_torch.ops import histograms as thist
 from waterorderlib_tpu_torch.ops import pairs as tpairs
 
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's spinning thread pools stall when they outnumber the cores
+torch.set_num_threads(1)
+
 T = torch.from_numpy
 
 

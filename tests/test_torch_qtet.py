@@ -23,6 +23,10 @@ from waterorderlib_tpu_torch.ops.cuda import qtet2 as tqtet2
 from waterorderlib_tpu_torch.ops.cuda import slab as tslab
 from waterorderlib_tpu_torch.order import qtet as tqtet
 
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's spinning thread pools stall when they outnumber the cores
+torch.set_num_threads(1)
+
 T = torch.from_numpy
 TOL = 1e-5
 
@@ -82,12 +86,12 @@ def test_slab_prep_matches_jax(traj4096):
     pos, boxes = traj4096
     window, pad = _slab_params(4096, float(boxes[0, 2]))
     want = jslab.slab_prep_traj(jnp.asarray(pos), jnp.asarray(boxes), 4.5, 256, window, pad)
-    got = tslab.slab_prep_traj(T(pos), T(boxes), 4.5, 256, window, pad)
+    got = tslab.slab_prep_traj(T(pos), T(boxes), ((4.5, window),), 256, pad)
     np.testing.assert_array_equal(got.order0.numpy(), np.asarray(want.order0))
     np.testing.assert_array_equal(got.ext_t.numpy(), np.asarray(want.ext_t))
-    np.testing.assert_array_equal(got.covered.numpy(), np.asarray(want.covered))
-    assert got.n_tiles == want.n_tiles and got.w >= want.w
-    assert np.all(got.starts.numpy() >= np.asarray(want.starts) * 128)
+    np.testing.assert_array_equal(got.covered[0].numpy(), np.asarray(want.covered))
+    assert got.n_tiles == want.n_tiles and got.ws[0] >= want.w
+    assert np.all(got.starts[0].numpy() >= np.asarray(want.starts) * 128)
 
 
 def test_kernel_contract_matches_pallas_kernel(traj4096):
@@ -102,13 +106,13 @@ def test_kernel_contract_matches_pallas_kernel(traj4096):
         )
     jp = jslab.slab_prep_traj(pj, bj, 4.5, 256, window, pad)
     prep = interop.slab_prep_from_jax(
-        np.asarray(jp.ext_t), np.asarray(jp.starts), np.asarray(jp.covered),
-        np.asarray(jp.order0), jp.w, jp.n_tiles, "cpu",
+        np.asarray(jp.ext_t), (np.asarray(jp.starts),), (np.asarray(jp.covered),),
+        np.asarray(jp.order0), (jp.w,), jp.n_tiles, "cpu",
     )
-    np.testing.assert_array_equal(prep.starts.numpy(), np.asarray(jp.starts) * 128)
+    np.testing.assert_array_equal(prep.starts[0].numpy(), np.asarray(jp.starts) * 128)
     before = tqtet2.q_window_plain.calls
     q, ok = tqtet2.q_window(
-        prep.ext_t[:, :, pad : pad + 4096], prep.ext_t, prep.starts, T(boxes), prep.w, 256,
+        prep.ext_t[:, :, pad : pad + 4096], prep.ext_t, prep.starts[0], T(boxes), prep.ws[0], 256,
         0.0, 100.0, 4.5 * 4.5,
     )
     assert tqtet2.q_window_plain.calls == before + 1  # CPU tensor -> plain version

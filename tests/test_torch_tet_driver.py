@@ -20,6 +20,10 @@ from waterorderlib_tpu_torch.io.synthetic import make_water_box
 from waterorderlib_tpu_torch.ops.cuda import qtet2 as tqtet2
 from waterorderlib_tpu_torch.stats import blocks as tblocks
 
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's spinning thread pools stall when they outnumber the cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_WAT, N_FRAMES = 512, 4
 
@@ -112,7 +116,7 @@ def test_port_imports_no_jax(tmp_path):
         "import waterorderlib_tpu_torch.__main__, waterorderlib_tpu_torch.interop\n"
         "from waterorderlib_tpu_torch.drivers import orderparams as op\n"
         "top, traj = make_water_box(64, n_frames=2, seed=0)\n"
-        "for fn in (op.tet_order_calc, op.three_body_calc, op.hex_order_calc):\n"
+        "for fn in (op.tet_order_calc, op.three_body_calc, op.hex_order_calc, op.lsi_calc):\n"
         f"    fn(top, traj, output_dir={str(tmp_path)!r}, device='cpu')\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules\n"

@@ -24,6 +24,10 @@ from waterorderlib_tpu.io.synthetic import make_water_box as jax_box
 from waterorderlib_tpu_torch.drivers import orderparams as top_
 from waterorderlib_tpu_torch.io.synthetic import make_water_box as port_box
 
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's spinning thread pools stall when they outnumber the cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_WAT, N_FRAMES, SEED = 600, 3, 23
 

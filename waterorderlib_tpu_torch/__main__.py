@@ -4,6 +4,7 @@
     python -m waterorderlib_tpu_torch tet sys.json sys.npz --output-dir out/ --device cuda
     python -m waterorderlib_tpu_torch 3body sys.json sys.npz --output-dir out/
     python -m waterorderlib_tpu_torch psi sys.json sys.npz --output-dir out/
+    python -m waterorderlib_tpu_torch lsi sys.json sys.npz --output-dir out/
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ def main(argv=None):
         ("3body", "3-body angle distribution",
          [("--high-cut", float, 3.413), ("--max-neighbors", int, 16)]),
         ("psi", "hexagonal order parameter psi6", [("--high-cut", float, 7.0)]),
+        ("lsi", "local structure index", [("--high-cut", float, 3.7)]),
     ]:
         p = sub.add_parser(name, help=helptext)
         _add_common(p)
@@ -81,6 +83,11 @@ def main(argv=None):
             **common,
         )
         print(json.dumps({"pTet": p_tet[0].tolist(), "entropy": entropy[0].tolist()}))
+    elif args.cmd == "lsi":
+        avg_lsi, var_lsi = orderparams.lsi_calc(
+            args.top, args.traj, wat_res=args.wat_res, **common
+        )
+        print(json.dumps({"avgLSI": avg_lsi[0].tolist(), "varLSI": var_lsi[0].tolist()}))
     else:
         avg_psi, var_psi = orderparams.hex_order_calc(
             args.top, args.traj, end_res=args.wat_res, **common

@@ -1,11 +1,11 @@
 """Trajectory-level order-parameter drivers (port of
-waterorderlib_tpu.drivers.orderparams): `tet_order_calc`, `three_body_calc`
-and `hex_order_calc`.
+waterorderlib_tpu.drivers.orderparams): `tet_order_calc`, `three_body_calc`,
+`lsi_calc` and `hex_order_calc`.
 
 The whole trajectory moves to the device once as an (F, Nc, 3) float32
 tensor of centers; each driver computes its per-center values for every
 center by a certified kernel dispatch (ops/cuda/qtet2.py, angles.py,
-psi6.py), and sub-populations are boolean masks over the center axis, so
+lsi.py, psi6.py), and sub-populations are boolean masks over the center axis, so
 population statistics are masked reductions over the same values. Each
 driver writes the JAX package's text artifacts into `output_dir` and returns
 [mean, CI] pairs from the same 20-block bootstrap (host numpy, `seed`).
@@ -28,6 +28,7 @@ from waterorderlib_tpu_torch.io.topology import Topology
 from waterorderlib_tpu_torch.io.trajectory import Trajectory, load_system, load_topology
 from waterorderlib_tpu_torch.ops import histograms, pairs
 from waterorderlib_tpu_torch.ops.cuda import angles as angles_kernel
+from waterorderlib_tpu_torch.ops.cuda import lsi as lsi_kernel
 from waterorderlib_tpu_torch.ops.cuda import psi6 as psi6_kernel
 from waterorderlib_tpu_torch.ops.cuda import qtet2
 from waterorderlib_tpu_torch.order import angles as angles_mod
@@ -208,9 +209,12 @@ def _run_whole(top_file, traj_file, sub_inds, n_pops, wat_res, stride, core, dev
     return _run_core(core, *frames)
 
 
-def _masked_value_pop_stats(values, masks, n_bins, lo, hi):
+def _masked_value_pop_stats(values, masks, n_bins, lo, hi, valid=None):
     """(hist (P+1, n_bins) int64, (means (F, P+1), vars (F, P+1))) of
-    per-center values (F, N) under per-population masks (F, P+1, N)."""
+    per-center values (F, N) under per-population masks (F, P+1, N),
+    intersected with a per-center validity mask (F, N) when one is given."""
+    if valid is not None:
+        masks = masks & valid[:, None, :]
     means, vars_ = histograms.masked_mean_var(values[:, None, :], masks)
     hist = torch.stack([
         histograms.masked_histogram(values, masks[:, p, :], n_bins, lo, hi)
@@ -418,6 +422,77 @@ def _three_body_outputs(
             _logging_mod.get_logger().warning("three_body_calc: 2-D PNG skipped (%r)", e)
     _stage_end("savetxt")
     out = tuple(_mean_ci_rows(np.asarray(a), seed) for a in (frac, avg, var, ent, n_wats))
+    _stage_end("bootstrap (host)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lsiCalc
+# ---------------------------------------------------------------------------
+
+def _lsi_core(wat_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi):
+    """LSI + population statistics for one frame batch over the centers
+    with a defined LSI: returns (hist (P+1, n_bins), (means (F, P+1),
+    vars (F, P+1)))."""
+    lsi_v, valid, _ = lsi_kernel.lsi_certified(wat_pos, boxes, low_cut, high_cut)
+    _log_tier("lsi_calc", lsi_kernel.last_tier)
+    _stage_end("kernel stage")
+    out = _masked_value_pop_stats(lsi_v, masks, n_bins, lo, hi, valid=valid)
+    _stage_end("stats (device)")
+    return out
+
+
+def lsi_calc(
+    top_file,
+    traj_file,
+    sub_inds=None,
+    n_pops: int = 0,
+    wat_res: str = "WAT",
+    stride: int = 1,
+    low_cut: float = 0.0,
+    high_cut: float = 3.7,
+    max_neighbors: int = 24,
+    output_dir: str = ".",
+    row_block: int = pairs.DEFAULT_ROW_BLOCK,
+    seed: int | None = 0,
+    chunk_frames: int | None = None,
+    mesh=None,
+    device="cuda",
+):
+    """LSI driver (orderParam_lib.py:1586-1663). Returns (avgLSI, varLSI),
+    each [means, CIs] over populations (slot 0 = all waters); writes
+    lsiDistribution_j.txt per population (500 bins over [0, 0.3] A^2).
+
+    Each system size takes the JAX package's LSI tier (ops/cuda/lsi.py
+    `split_tier`), so both packages give the same values. `chunk_frames`
+    streams the trajectory as in tet_order_calc (the JAX `lsi_calc` has no
+    checkpoint). `row_block` is accepted for the JAX package's signature;
+    the kernel path has no row blocks. The kernels keep the 24 nearest
+    candidates: other `max_neighbors`, and `mesh`, are not ported yet.
+    """
+    _not_ported(mesh, max_neighbors, lsi_kernel.K, "lsi_calc")
+    dev = _device(device)
+    n_bins, lo, hi = 500, 0.0, 0.3
+
+    def core(wat_pos, boxes, masks):
+        return _lsi_core(wat_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi)
+
+    if chunk_frames is not None:
+        hist, (avg_lsi, var_lsi) = _run_chunked(
+            top_file, traj_file, sub_inds, n_pops, wat_res, stride, chunk_frames,
+            core, n_carry=1, n_stats=2, device=dev, fp_params=("lsi", low_cut, high_cut),
+        )
+    else:
+        hist, (avg_lsi, var_lsi) = _run_whole(
+            top_file, traj_file, sub_inds, n_pops, wat_res, stride, core, dev
+        )
+    for j in range(n_pops + 1):
+        _save_hist(
+            os.path.join(output_dir, f"lsiDistribution_{j}.txt"),
+            hist[j], n_bins, lo, hi, "lsiVal [A^2]    frequency",
+        )
+    _stage_end("savetxt")
+    out = _mean_ci_rows(avg_lsi, seed), _mean_ci_rows(var_lsi, seed)
     _stage_end("bootstrap (host)")
     return out
 

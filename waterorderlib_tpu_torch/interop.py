@@ -3,9 +3,10 @@
 This system has no weights: its state is the trajectory and the slab prep.
 The port's `io` is a copy of the JAX package's, so a system built or loaded
 by either holds the same arrays (pass them as numpy); `slab_prep_from_jax`
-turns the JAX package's `SlabPrep` arrays into the port's, so the port's
-kernel contracts can be fed the JAX prep and kernel parity checked apart
-from prep parity.
+turns the JAX package's slab prep arrays (of one window spec or several)
+into the port's `SlabPrep`, so the port's kernel contracts can be fed the
+JAX prep and kernel parity checked apart from prep parity, and
+`coords_from_jax` carries a coordinate array such as LSI's raw layout.
 """
 
 from __future__ import annotations
@@ -16,19 +17,27 @@ import torch
 from waterorderlib_tpu_torch.ops.cuda.slab import SlabPrep
 
 
-def slab_prep_from_jax(ext_t, starts_div128, covered, order0, w, n_tiles, device) -> SlabPrep:
-    """The port's SlabPrep from the JAX package's, given as numpy arrays.
+def slab_prep_from_jax(ext_t, starts_div128, covered, order0, ws, n_tiles, device) -> SlabPrep:
+    """The port's SlabPrep from the JAX package's, given as numpy arrays:
+    starts_div128, covered and ws hold one entry per window spec (the JAX
+    `slab_prep_traj`'s single spec passed as 1-tuples).
 
     The JAX prep stores window starts divided by 128 (the TPU's lane
     alignment); the port stores them in columns.
     """
     # torch.tensor copies: arrays handed over from jax are read-only
-    starts = np.asarray(starts_div128, dtype=np.int64) * 128
     return SlabPrep(
-        ext_t=torch.tensor(np.asarray(ext_t, np.float32), device=device),
-        starts=torch.tensor(starts.astype(np.int32), device=device),
-        covered=torch.tensor(np.asarray(covered, bool), device=device),
+        ext_t=coords_from_jax(ext_t, device),
+        starts=tuple(torch.tensor((np.asarray(s, np.int64) * 128).astype(np.int32), device=device)
+                     for s in starts_div128),
+        covered=tuple(torch.tensor(np.asarray(c, bool), device=device) for c in covered),
         order0=torch.tensor(np.asarray(order0, np.int64), device=device),
-        w=int(w),
+        ws=tuple(int(w) for w in ws),
         n_tiles=int(n_tiles),
     )
+
+
+def coords_from_jax(arr, device) -> torch.Tensor:
+    """A float32 coordinate array (e.g. (F, 3, n_ext) ext_t or raw_t) as a
+    tensor of its own (a copy: arrays handed over from jax are read-only)."""
+    return torch.tensor(np.ascontiguousarray(arr, np.float32), device=device)

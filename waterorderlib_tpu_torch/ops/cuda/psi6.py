@@ -61,7 +61,7 @@ def psi6_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq):
         if top is None:  # a window outside the columns
             psi[:, r0:r1], count[:, r0:r1] = math.nan, 0
             continue
-        re = torch.zeros_like(top.kth_dsq)
+        re = torch.zeros_like(top.dsq[..., 0])
         im = torch.zeros_like(re)
         npair = torch.zeros_like(re)
         for b in range(1, K):

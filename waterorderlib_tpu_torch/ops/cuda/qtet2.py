@@ -62,7 +62,7 @@ def q_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, marg
         if top is None:  # a window outside the columns
             q[:, r0:r1], ok[:, r0:r1] = math.nan, False
             continue
-        ssum = torch.zeros_like(top.kth_dsq)
+        ssum = torch.zeros_like(top.dsq[..., 0])
         for a in range(4):
             for b in range(a + 1, 4):
                 cosv = (top.ux[..., a] * top.ux[..., b] + top.uy[..., a] * top.uy[..., b]
@@ -70,7 +70,7 @@ def q_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, marg
                 cosv = torch.where(top.ok[..., a] & top.ok[..., b], cosv.clamp(-1.0, 1.0), -1.0)
                 ssum = ssum + (cosv + 1.0 / 3.0) ** 2
         q[:, r0:r1] = torch.where(top.count > 0, 1.0 - 0.375 * ssum, 0.0)
-        ok[:, r0:r1] = top.ok[..., 3] & (top.kth_dsq <= torch.tensor(margin_sq, dtype=torch.float32))
+        ok[:, r0:r1] = top.ok[..., 3] & (top.dsq[..., -1] <= torch.tensor(margin_sq, dtype=torch.float32))
     return q, ok
 
 
@@ -118,15 +118,15 @@ def order_param_q_traj(
     covered (F,) bool).
     """
     n = pos.shape[1]
-    prep = slab_prep_traj(pos, boxes, margin, row_tile, window, pad)
+    prep = slab_prep_traj(pos, boxes, ((margin, window),), row_tile, pad)
     rows = prep.ext_t[:, :, pad : pad + n]
     q, ok = q_window(
-        rows, prep.ext_t, prep.starts, boxes, prep.w, row_tile,
+        rows, prep.ext_t, prep.starts[0], boxes, prep.ws[0], row_tile,
         _sq(low_cut), _sq(high_cut), _sq(margin),
     )
     if not unsort:
-        return q, ok, prep.covered
-    return unsort_frames(q, prep.order0), unsort_frames(ok, prep.order0), prep.covered
+        return q, ok, prep.covered[0]
+    return unsort_frames(q, prep.order0), unsort_frames(ok, prep.order0), prep.covered[0]
 
 
 # which tier served the most recent order_param_q_certified call:

@@ -20,12 +20,16 @@ import torch
 
 
 class SlabPrep(NamedTuple):
+    """One z-sort and extended array for a trajectory, with the windows of
+    one or more (margin, window) specs: `starts`, `covered` and `ws` hold
+    one entry per spec, in the order given."""
+
     ext_t: torch.Tensor    # (F, 3, n_ext) extended transposed coordinates, f32
-    starts: torch.Tensor   # (n_tiles,) int32 window starts in columns
+    starts: tuple          # per spec: (n_tiles,) int32 window starts in columns
                            # (frame-invariant: frame-0 persistent ordering)
-    covered: torch.Tensor  # (F,) bool: window held every slab candidate
+    covered: tuple         # per spec: (F,) bool: window held every slab candidate
     order0: torch.Tensor   # (N,) frame-0 z-ordering (sorted -> original scatter)
-    w: int                 # window width actually used
+    ws: tuple              # per spec: window width actually used
     n_tiles: int
 
 
@@ -42,19 +46,20 @@ def clamp_window(window: int, n: int, seg: int) -> int:
     return w
 
 
-def slab_prep_traj(
-    pos: torch.Tensor,
-    boxes: torch.Tensor,
-    margin: float,
-    row_tile: int,
-    window: int,
-    pad: int,
-) -> SlabPrep:
-    """Frame-0 persistent z-ordering prep for a whole trajectory.
+def slab_prep_traj(pos, boxes, specs, row_tile: int, pad: int) -> SlabPrep:
+    """Frame-0 persistent z-ordering prep for a whole trajectory, for one or
+    more (margin, window) specs sharing one z-sort and one extended array
+    (port of the JAX package's `slab.slab_prep_traj` and
+    `slab_prep_traj_multi`; the split-shell LSI kernel scans two windows of
+    different widths per row tile).
 
-    pos: (F, N, 3) f32; boxes: (F, 3) orthorhombic edges. The effective
-    margin is inflated by twice the measured maximum (min-image) z-drift from
-    frame 0, so the frame-0 window starts remain valid for every frame.
+    pos: (F, N, 3) f32; boxes: (F, 3) orthorhombic edges. The drift is the
+    largest min-image z-drift of any atom from its frame-0 slot plus
+    max_f |L_f - L_0| over the z edges: the windows are placed with frame
+    0's z and L_0, while frame f's neighbors and pad copies follow L_f, so a
+    box that changes between frames (NPT) moves a neighbor's periodic image
+    by up to that much more. Each spec's margin is inflated by twice the
+    drift, so the frame-0 window starts remain valid for every frame.
     """
     F, n = pos.shape[0], pos.shape[1]
     n_pad_rows = -(-n // row_tile) * row_tile
@@ -71,32 +76,49 @@ def slab_prep_traj(
     # within its circular drift of its frame-0 slot, and the +/-L pad copies
     # realize that circular column adjacency
     dz = torch.abs(zs - zs[0:1])
-    drift = torch.max(torch.minimum(dz, L - dz))
-    margin_eff = margin + 2.0 * drift
+    drift = torch.max(torch.minimum(dz, L - dz)) + torch.max(torch.abs(L - L[0:1]))
 
     z_shift = torch.zeros((F, 1, 3), dtype=sp.dtype, device=sp.device)
     z_shift[:, 0, 2] = L[:, 0]
     ext = torch.cat([sp[:, n - pad :, :] - z_shift, sp, sp[:, :pad, :] + z_shift], dim=1)
     n_ext = ext.shape[1]
-    # a window wider than N sorted atoms could hold an atom AND its periodic
-    # boundary copy, double-counting that neighbor
-    w = min(window, n_ext, n)
 
     ext_z0 = ext[0, :, 2].contiguous()
     tile_first = torch.arange(n_tiles, device=pos.device) * row_tile
     tile_last = torch.clamp(tile_first + row_tile - 1, max=n - 1)
-    z_lo = zs[0][tile_first] - margin_eff
-    z_hi = zs[0][tile_last] + margin_eff
-    starts = torch.searchsorted(ext_z0, z_lo, side="left")
-    ends = torch.searchsorted(ext_z0, z_hi, side="right")
-    starts = torch.clamp(starts, 0, n_ext - w)
-    # the pad slabs must be at least margin_eff deep in z, or cross-boundary
-    # candidates fall outside ext while the windows look covered
-    pad_ok = (ext_z0[0] <= z_lo[0]) & (ext_z0[-1] >= z_hi[-1])
-    covered = (torch.all(ends - starts <= w) & pad_ok).expand(F)
+    starts_all, covered_all, ws = [], [], []
+    for margin, window in specs:
+        margin_eff = margin + 2.0 * drift
+        # a window wider than N sorted atoms could hold an atom AND its
+        # periodic boundary copy, double-counting that neighbor
+        w = min(window, n_ext, n)
+        z_lo = zs[0][tile_first] - margin_eff
+        z_hi = zs[0][tile_last] + margin_eff
+        starts = torch.searchsorted(ext_z0, z_lo, side="left")
+        ends = torch.searchsorted(ext_z0, z_hi, side="right")
+        starts = torch.clamp(starts, 0, n_ext - w)
+        # the pad slabs must be at least margin_eff deep in z, or
+        # cross-boundary candidates fall outside ext while the windows look
+        # covered
+        pad_ok = (ext_z0[0] <= z_lo[0]) & (ext_z0[-1] >= z_hi[-1])
+        covered_all.append((torch.all(ends - starts <= w) & pad_ok).expand(F))
+        starts_all.append(starts.to(torch.int32))
+        ws.append(w)
 
     ext_t = ext.transpose(1, 2).to(torch.float32).contiguous()
-    return SlabPrep(ext_t, starts.to(torch.int32), covered, order0, w, n_tiles)
+    return SlabPrep(ext_t, tuple(starts_all), tuple(covered_all), order0, tuple(ws), n_tiles)
+
+
+def raw_ext_t(pos: torch.Tensor, order0: torch.Tensor, pad: int) -> torch.Tensor:
+    """(F, 3, n_ext) stored (not wrapped) coordinates in the extended
+    array's column layout: permuted by `order0`, with the pad copies keeping
+    the original coordinates, unshifted (the layout of the JAX package's
+    `lsi_kernel.lsi_traj`). LSI's next-shell pick reads raw distances
+    here."""
+    n = pos.shape[1]
+    raw = pos[:, order0, :]
+    ext = torch.cat([raw[:, n - pad :, :], raw, raw[:, :pad, :]], dim=1)
+    return ext.transpose(1, 2).to(torch.float32).contiguous()
 
 
 def suggest_pad(n: int, box_z: float, depth: float, safety: float = 1.6) -> int:
@@ -129,6 +151,12 @@ def brute_cols(pos: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """(F, 3, N) wrapped, transposed frames: the rows and columns of a
     kernel contract's brute form (start 0, window = N)."""
     return torch.remainder(pos, boxes[:, None, :]).transpose(1, 2).contiguous()
+
+
+def brute_raw(pos: torch.Tensor) -> torch.Tensor:
+    """(F, 3, N) stored, transposed frames: the raw rows and columns of the
+    brute form."""
+    return pos.transpose(1, 2).to(torch.float32).contiguous()
 
 
 def unsort_frames(arr_sorted: torch.Tensor, order0: torch.Tensor) -> torch.Tensor:

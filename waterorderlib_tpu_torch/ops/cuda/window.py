@@ -11,7 +11,12 @@ inside tiles of `row_tile` rows. A window outside the columns gives NaN.
 
 The slab form passes the z-sorted frame as rows and the extended array as
 columns; the brute form passes the wrapped frame as both, start 0, w = N.
-`certified` chooses between them for the angles and psi6 kernels.
+`certified` chooses between them for the angles, psi6 and LSI kernels.
+
+LSI's kernels also take the raw (stored, not wrapped) coordinates of the
+same rows and columns: raw_rows (F, 3, R) and raw_cols (F, 3, C), laid out
+as rows and cols (`slab.raw_ext_t`, `slab.brute_raw`); `raw_args` passes
+them to the launcher after the contract's arguments.
 """
 
 from __future__ import annotations
@@ -60,6 +65,23 @@ def check(rows, cols, starts, boxes, w, row_tile):
         raise ValueError(f"window w={w} must lie in (0, {cols.shape[2]}]")
 
 
+def check_raw(rows, cols, raw_rows, raw_cols):
+    """Raise unless the raw rows and columns match rows and cols in
+    device, dtype and shape, with unit stride along their last axis."""
+    for name, t, like in (("raw_rows", raw_rows, rows), ("raw_cols", raw_cols, cols)):
+        if t.device != like.device or t.dtype != torch.float32 or t.shape != like.shape:
+            raise ValueError(f"{name} must be float32 {tuple(like.shape)} on {like.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.stride(2) != 1:
+            raise ValueError(f"{name} needs unit stride along its last axis")
+
+
+def raw_args(raw_rows, raw_cols):
+    """The launcher's `extra` arguments for the raw rows and columns."""
+    return ((_c_ptr, raw_rows.data_ptr()), (_c_ll, raw_rows.stride(0)), (_c_ll, raw_rows.stride(1)),
+            (_c_ptr, raw_cols.data_ptr()), (_c_ll, raw_cols.stride(0)), (_c_ll, raw_cols.stride(1)))
+
+
 def runs_plain(rows, name: str) -> bool:
     """True for CPU tensors (the plain version serves them); False for CUDA
     tensors (the kernel serves them); any other device raises."""
@@ -70,10 +92,11 @@ def runs_plain(rows, name: str) -> bool:
     return False
 
 
-def launch(source, entry, rows, cols, starts, boxes, w, row_tile, scalars, outs):
+def launch(source, entry, rows, cols, starts, boxes, w, row_tile, scalars, outs, extra=()):
     """Call `entry` of csrc/<source>.cu on the current stream. Its C
-    signature is the contract's arguments, then `scalars` as floats, then
-    the output pointers, then the stream; it returns the CUDA error code."""
+    signature is the contract's arguments, then `extra` ((ctypes type,
+    value) pairs, e.g. `raw_args`), then `scalars` as floats, then the
+    output pointers, then the stream; it returns the CUDA error code."""
     fn = getattr(build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = [
@@ -81,6 +104,7 @@ def launch(source, entry, rows, cols, starts, boxes, w, row_tile, scalars, outs)
             _c_ptr, _c_ll, _c_ll, _c_int,          # cols, frame/coord strides, n_cols
             _c_ptr, _c_int,                        # starts, w
             _c_ptr, _c_int, _c_int,                # boxes, n_frames, row_tile
+            *(ctype for ctype, _ in extra),
             *([_c_float] * len(scalars)),
             *([_c_ptr] * len(outs)),
             _c_ptr,                                # stream
@@ -91,26 +115,29 @@ def launch(source, entry, rows, cols, starts, boxes, w, row_tile, scalars, outs)
             rows.data_ptr(), rows.stride(0), rows.stride(1), rows.shape[2],
             cols.data_ptr(), cols.stride(0), cols.stride(1), cols.shape[2],
             starts.data_ptr(), w, boxes.data_ptr(), rows.shape[0], row_tile,
-            *scalars, *(t.data_ptr() for t in outs),
+            *(value for _, value in extra), *scalars, *(t.data_ptr() for t in outs),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
 
 
-def brute_form(kernel, pos, boxes, row_tile, *scalars):
+def brute_form(kernel, pos, boxes, row_tile, *scalars, raw=False):
     """`kernel` over whole frames in one launch: rows and columns are the
-    wrapped frames, start 0, window = N. pos: (F, N, 3) f32; boxes: (F, 3)."""
+    wrapped frames, start 0, window = N (with `raw`, the stored frames
+    follow as raw rows and columns). pos: (F, N, 3) f32; boxes: (F, 3)."""
     n = pos.shape[1]
     ext_t = slab.brute_cols(pos, boxes)
     starts = torch.zeros(-(-n // row_tile), dtype=torch.int32, device=pos.device)
-    return kernel(ext_t, ext_t, starts, boxes, n, row_tile, *scalars)
+    extra = (slab.brute_raw(pos),) * 2 if raw else ()
+    return kernel(ext_t, ext_t, starts, boxes, n, row_tile, *extra, *scalars)
 
 
-def certified(kernel, pos, boxes, margin, row_tile, *scalars):
+def certified(kernel, pos, boxes, margin, row_tile, *scalars, raw=False):
     """`kernel` over whole frames with certified exactness (host-level
     dispatch): the slab form when its planned window is narrower than N and
     the prep's `covered` certificate holds at `margin`, else the brute form.
+    With `raw`, the kernel also takes the raw rows and columns.
 
     Returns (the kernel's outputs in the original atom order, tier), tier
     "slab" or "brute".
@@ -118,12 +145,16 @@ def certified(kernel, pos, boxes, margin, row_tile, *scalars):
     n = pos.shape[1]
     win, pad = slab.plan(n, float(boxes[0, 2]), margin, row_tile)
     if win < n:
-        prep = slab.slab_prep_traj(pos, boxes, margin, row_tile, win, pad)
-        if bool(prep.covered.all()):
-            outs = kernel(prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts, boxes,
-                          prep.w, row_tile, *scalars)
+        prep = slab.slab_prep_traj(pos, boxes, ((margin, win),), row_tile, pad)
+        if bool(prep.covered[0].all()):
+            extra = ()
+            if raw:
+                raw_t = slab.raw_ext_t(pos, prep.order0, pad)
+                extra = (raw_t[:, :, pad : pad + n], raw_t)
+            outs = kernel(prep.ext_t[:, :, pad : pad + n], prep.ext_t, prep.starts[0], boxes,
+                          prep.ws[0], row_tile, *extra, *scalars)
             return tuple(slab.unsort_frames(o, prep.order0) for o in outs), "slab"
-    return brute_form(kernel, pos, boxes, row_tile, *scalars), "brute"
+    return brute_form(kernel, pos, boxes, row_tile, *scalars, raw=raw), "brute"
 
 
 class TopK(NamedTuple):
@@ -134,7 +165,9 @@ class TopK(NamedTuple):
     uz: torch.Tensor
     ok: torch.Tensor     # (F, r, k) bool: the slot holds a neighbor
     count: torch.Tensor  # (F, r) int64 full shell count over the window
-    kth_dsq: torch.Tensor  # (F, r) squared distance in the last slot (+inf if empty)
+    dsq: torch.Tensor    # (F, r, k) squared imaged distances (+inf in empty slots)
+    col: torch.Tensor    # (F, r, k) int64 column of each slot in `cols` (window
+                         # start + offset; meaningless in empty slots)
 
 
 def dot3(a0, b0, a1, b1, a2, b2, fused: bool):
@@ -147,8 +180,12 @@ def dot3(a0, b0, a1, b1, a2, b2, fused: bool):
     return fma_f32(a2, b2, fma_f32(a0, b0, a1 * b1))
 
 
-def _mi(d, box_l):
-    # coordinates are wrapped into [0, L); two compare-selects replace round()
+def window_disp(rows, cols, boxes, r0, r1, s, w):
+    """(F, 3, r, w) minimum-image displacements from rows [r0, r1) to the
+    columns [s, s + w), column minus row. Coordinates are wrapped into
+    [0, L): two compare-selects replace round(), as in the kernels."""
+    d = cols[:, :, None, s : s + w] - rows[:, :, r0:r1, None]
+    box_l = boxes[:, :, None, None]
     d = torch.where(d > box_l * 0.5, d - box_l, d)
     return torch.where(d < -box_l * 0.5, d + box_l, d)
 
@@ -159,7 +196,7 @@ def topk_tiles(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, k, fused
     over its window and k rounds of lowest-column minimum extraction (the
     rule of slab.extract_k_min), or top = None for a window outside the
     columns. `fused` selects the kernel's arithmetic for squared lengths
-    (`dot3`)."""
+    (`dot3`). Shells are (low_sq, high_sq] on squared distances."""
     dev = rows.device
     n_rows = rows.shape[2]
     low, high = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (low_sq, high_sq))
@@ -170,14 +207,12 @@ def topk_tiles(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, k, fused
         if not 0 <= s <= cols.shape[2] - w:
             yield r0, r1, None
             continue
-        xr = rows[:, :, r0:r1, None]                 # (F, 3, r, 1)
-        xs = cols[:, :, None, s : s + w]             # (F, 3, 1, w)
-        d = _mi(xs - xr, boxes[:, :, None, None])    # (F, 3, r, w)
+        d = window_disp(rows, cols, boxes, r0, r1, s, w)  # (F, 3, r, w)
         dsq = dot3(d[:, 0], d[:, 0], d[:, 1], d[:, 1], d[:, 2], d[:, 2], fused)
         valid = (dsq > low) & (dsq <= high)
         count = valid.sum(dim=-1)
         dm = torch.where(valid, dsq, inf)
-        units, oks = [], []
+        units, oks, mins, fcs = [], [], [], []
         for _ in range(k):
             m = dm.min(dim=-1, keepdim=True).values
             eq = (dm == m) & torch.isfinite(dm)
@@ -189,7 +224,9 @@ def topk_tiles(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, k, fused
             nrm = sqrt_f32(dot3(v[:, 0], v[:, 0], v[:, 1], v[:, 1], v[:, 2], v[:, 2], fused))
             inv = torch.where(nrm > 0, 1.0 / torch.where(nrm > 0, nrm, 1.0), 0.0)
             units.append(v * inv[:, None])
-            kth = m[..., 0]
+            mins.append(m[..., 0])
+            fcs.append(s + fc[..., 0])
             dm = torch.where(first, inf, dm)
         u = torch.stack(units, dim=-1)               # (F, 3, r, k)
-        yield r0, r1, TopK(u[:, 0], u[:, 1], u[:, 2], torch.stack(oks, dim=-1), count, kth)
+        yield r0, r1, TopK(u[:, 0], u[:, 1], u[:, 2], torch.stack(oks, dim=-1), count,
+                           torch.stack(mins, dim=-1), torch.stack(fcs, dim=-1))

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from waterorderlib_tpu_torch.core import pbc
+from waterorderlib_tpu_torch.core.fp32 import sqrt_f32
 
 DEFAULT_ROW_BLOCK = 512
 
@@ -102,7 +103,7 @@ def topk_neighbors(
             top_dsq = torch.nn.functional.pad(top_dsq, (0, pad), value=math.inf)
             idx = torch.nn.functional.pad(idx, (0, pad))
         slot_ok = torch.isfinite(top_dsq)
-        dist = torch.sqrt(top_dsq)
+        dist = sqrt_f32(top_dsq)  # correctly rounded, as XLA's and the card's sqrt
         idx = torch.where(slot_ok, idx, torch.zeros_like(idx)).to(torch.int32)
         outs.append((dist, idx, slot_ok, count))
     return NeighborList(*(torch.cat(parts)[:ns] for parts in zip(*outs)))
