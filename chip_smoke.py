@@ -16,6 +16,10 @@ Phases (each raises on failure; nothing is caught):
    imaged distances differ), and a 16-member cluster in one shell of a
    16,384-water box, where `lsi_certified` must leave the split tier for
    the K=24 kernel (without the cluster no row of that box is incomplete);
+   both H-bond kernels on 4096 waters x 8 frames of `make_water_box`
+   (water-water, the JAX package's asymmetric 37-donor sets, and a third of
+   the stored atoms shifted by +/-L), the slab kernel also against the
+   dense one and, at w = 512, failing `covered`; counts exactly equal;
 3. the q_tet slice: `tet_order_calc` on a 4096-water, 1024-frame box with
    one sub-population, device="cuda"; it must take the slab tier, launch
    the kernel and never call the plain version; its q on 16 frames must
@@ -33,9 +37,16 @@ Phases (each raises on failure; nothing is caught):
    driver: `lsi_calc` at its default high_cut 3.7 A on 16,384 waters x 64
    frames whose oxygens sit on `_split_traj`'s lattice (six neighbors
    within 3.7 A on average, at most 9) must take "slab-split" and launch
-   `lsi_split_window`;
+   `lsi_split_window`; the H-bond slice: `hb_calc` on 4096 waters and a
+   solute whose nine acceptor x donor sets are non-empty x 1024 frames (the
+   dense tier; its per-water totals on 16 frames equal the arccos form
+   `bonds.general_hbond_counts` on the card), `get_bound_wrap` on it (masks
+   equal the plain masks with the arccos form on 16 frames) and `hb_calc`
+   at 16,384 waters x 64 frames (the slab tier), plus a warm `hb_calc`
+   under the stage clock;
 5. each kernel's time per frame at its slice's own launch (F=1024; the
-   split kernel at 16,384 waters, F=64) and its plain version's on a few
+   split kernel at 16,384 waters, F=64; `hbond_slab` at 16,384 x 64 and,
+   for the crossover, at 4096 x 1024) and its plain version's on a few
    frames of it;
 6. 131,072 and 1,048,576 atoms, 1 frame: each certified dispatch must take
    the slab tier (LSI at high_cut 3.7 A: "slab-split" at 131,072 atoms of
@@ -43,7 +54,10 @@ Phases (each raises on failure; nothing is caught):
    12-13-neighbor rows fail the split certificate, and at 1,048,576), and
    each kernel must equal its plain
    version on two row tiles passed as the rows and window starts of those
-   tiles only.
+   tiles only; H-bonds at 131,072 and 349,525 waters (1,048,575 atoms), 1
+   frame: the certified dispatch takes the slab tier, the slab kernel
+   equals the dense kernel on every acceptor and donor, and each equals its
+   plain version on two acceptor tiles.
 
 The last line is one JSON object, {"ok": true, "device": {...}}; before it
 come a JSON line of the kernels (launches in their slice, largest error
@@ -101,12 +115,34 @@ SOURCES = {"qtet_window": "waterorderlib_tpu_torch/ops/cuda/csrc/qtet_window.cu"
            "angles_window": "waterorderlib_tpu_torch/ops/cuda/csrc/nbr_window.cu",
            "psi6_window": "waterorderlib_tpu_torch/ops/cuda/csrc/nbr_window.cu",
            "lsi_window": "waterorderlib_tpu_torch/ops/cuda/csrc/lsi_window.cu",
-           "lsi_split_window": "waterorderlib_tpu_torch/ops/cuda/csrc/lsi_window.cu"}
+           "lsi_split_window": "waterorderlib_tpu_torch/ops/cuda/csrc/lsi_window.cu",
+           "hbond_dense": "waterorderlib_tpu_torch/ops/cuda/csrc/hbond.cu",
+           "hbond_slab": "waterorderlib_tpu_torch/ops/cuda/csrc/hbond.cu"}
 REPLACES = {"qtet_window": "waterorderlib_tpu/ops/pallas/qtet2.py:111",
             "angles_window": "waterorderlib_tpu/ops/pallas/angles_kernel.py:159",
             "psi6_window": "waterorderlib_tpu/ops/pallas/psi6_kernel.py:163",
             "lsi_window": "waterorderlib_tpu/ops/pallas/lsi_kernel.py:177",
-            "lsi_split_window": "waterorderlib_tpu/ops/pallas/lsi_slab2.py:235"}
+            "lsi_split_window": "waterorderlib_tpu/ops/pallas/lsi_slab2.py:235",
+            "hbond_dense": "waterorderlib_tpu/ops/pallas/hbond_kernel.py:153",
+            "hbond_slab": "waterorderlib_tpu/ops/pallas/hbond_slab.py:193"}
+# the H-bond slice: hb_calc's default cuts; a solute with one O acceptor,
+# one O-H donor, one N acceptor and two N-H donors, so that each of the nine
+# acceptor x donor sets is non-empty; the slab tier's size
+HB_DIST, HB_ANG = 3.5, 120.0
+HB_SOLUTE = ["C", "O", "H", "N", "H", "C"]
+N_HB_SLAB = 16_384
+N_FRAMES_HB_SLAB = 64
+N_FRAMES_HB_PLAIN = 4
+N_FRAMES_HB_REF = 16
+HB_LARGE = (131_072, 349_525)  # waters; 349,525 x 3 = 1,048,575 atoms
+# float32 operations of the H-bond kernels: per visited (acceptor, donor)
+# pair 16 -- 3 subtracts, 6 minimum-image adds and 5 for the heavy-heavy
+# dsq (PAIR_FLOPS), 2 compares; per pair within the cut (dsq in (1e-2,
+# cut^2], the only pairs whose angle the kernels test) 22 more -- 3
+# subtracts, 6 minimum-image adds, 5 for |u|^2, 5 for u.vhat, a sqrt, a
+# multiply and a compare
+HB_PAIR_FLOPS = PAIR_FLOPS + 2
+HB_ANGLE_FLOPS = 22
 
 
 def _check(cond: bool, what: str) -> None:
@@ -234,7 +270,7 @@ def _cmp(name, kernel, plain, args, tols):
 
     got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
-    errs = []
+    errs = [0.0]
     for g, w, tol in zip(got, want, tols):
         if g.dtype.is_floating_point:
             _check(bool(torch.isfinite(g).all()), f"{name}: kernel output not finite")
@@ -359,6 +395,148 @@ def _first_frames(name, args, nf):
     return tuple(a[:nf] if i in FRAME_ARGS[name] else a for i, a in enumerate(args))
 
 
+def _hb_water_sets(pos, n):
+    """Water-water H-bond sets of frames whose first 3n atoms are n waters
+    laid out O, H1, H2: acceptors the oxygens (F, n, 3), donors each oxygen
+    twice and donor hydrogens the H's (F, 2n, 3)."""
+    import torch
+
+    f = pos.shape[0]
+    acc = pos[:, 0 : 3 * n : 3]
+    return (acc, torch.repeat_interleave(acc, 2, dim=1),
+            pos[:, : 3 * n].reshape(f, n, 3, 3)[:, :, 1:].reshape(f, 2 * n, 3))
+
+
+def _hb_water_frames(n, f, seed):
+    """(f, 3n, 3) f32 frames of n rigid waters (O, H1, H2; O-H 0.9572 A, HOH
+    104.52 degrees, random orientations) on the jittered lattice at water
+    density, and (f, 3) boxes; index arrays follow from the layout."""
+    import numpy as np
+    from waterorderlib_tpu_torch.io.synthetic import water_oxygen_lattice
+
+    box_len = (n / 0.033456) ** (1.0 / 3.0)
+    rs = np.random.RandomState(seed)
+    base = water_oxygen_lattice(n, box_len, seed=seed)
+    frames = []
+    for _ in range(f):
+        o = np.mod(base + rs.normal(scale=0.08, size=base.shape), box_len)
+        a = rs.normal(size=(n, 3))
+        a /= np.linalg.norm(a, axis=1, keepdims=True)
+        b = rs.normal(size=(n, 3))
+        b -= np.sum(a * b, axis=1, keepdims=True) * a
+        b /= np.linalg.norm(b, axis=1, keepdims=True)
+        c, sn = 0.9572 * np.cos(np.radians(52.26)), 0.9572 * np.sin(np.radians(52.26))
+        frames.append(np.stack([o, o + c * a + sn * b, o + c * a - sn * b], axis=1).reshape(-1, 3))
+    return np.stack(frames).astype(np.float32), np.full((f, 3), box_len, np.float32)
+
+
+def _hb_dense_args(acc, don, donh, boxes, dist=HB_DIST, ang=HB_ANG):
+    """hbond_dense's arguments, as `hbond_counts` prepares them."""
+    from waterorderlib_tpu_torch.ops.cuda import hbond
+
+    return (*hbond.dense_prep(acc, don, donh, boxes), boxes, dist * dist, hbond.cos_cut(ang))
+
+
+def _hb_slab_args(acc, don, donh, boxes, window_w=None, dist=HB_DIST, ang=HB_ANG):
+    """(prep, hbond_slab's arguments) at the certified dispatch's window and
+    pad, or at `window_w`."""
+    from waterorderlib_tpu_torch.ops.cuda import hbond
+
+    na, nd, box_z = acc.shape[1], don.shape[1], float(boxes[0, 2])
+    win = window_w or hbond.suggest_window_two_set(na, nd, box_z, dist)
+    pad = hbond.suggest_pad_two_set(nd, box_z, dist + 2.0)
+    prep = hbond.slab_prep_two_set(acc, don, donh, boxes, dist, win, pad)
+    return prep, (prep.acc, prep.don, prep.donh, prep.vhat, prep.starts, boxes, prep.w,
+                  dist * dist, hbond.cos_cut(ang))
+
+
+def _hb_within(prep, boxes, dist=HB_DIST):
+    """(acceptor, donor) pairs of all frames with dsq in (1e-2, dist^2]: the
+    pairs whose angle the kernels test. Counted over the slab prep's
+    windows, which hold every such pair where `covered` holds, with the
+    kernels' wrapped coordinates and minimum image."""
+    import torch
+
+    _check(bool(prep.covered.all()), "within-pair count: slab prep not covered")
+    F, _, n_rows = prep.acc.shape
+    n_tiles, w = prep.starts.shape[1], prep.w
+    offs = torch.arange(w, device=prep.acc.device)
+    tb = max(1, 2**26 // (128 * w))
+    total = 0
+    for f in range(F):
+        half = boxes[f] * 0.5
+        for t0 in range(0, n_tiles, tb):
+            t1 = min(n_tiles, t0 + tb)
+            cols = prep.starts[f, t0:t1].long()[:, None] + offs         # (tb, w)
+            d = prep.don[f][:, cols][:, :, None, :]                       # (3, tb, 1, w)
+            a = prep.acc[f][:, t0 * 128 : t1 * 128].reshape(3, t1 - t0, 128, 1)
+            e = d - a
+            e = torch.where(e > half[:, None, None, None], e - boxes[f][:, None, None, None], e)
+            e = torch.where(e < -half[:, None, None, None], e + boxes[f][:, None, None, None], e)
+            dsq = (e * e).sum(dim=0)
+            total += int(((dsq > 1.0e-2) & (dsq <= dist * dist)).sum())
+    return total
+
+
+def _hb_bound_ms(args, n_acc, within, slab):
+    """Least time of one H-bond launch on these inputs: float32 operations
+    (HB_PAIR_FLOPS per visited pair -- Na x Nd, or Na x w for the slab
+    kernel -- and HB_ANGLE_FLOPS per pair within the cut) over the peak
+    rate, or bytes (inputs read once, int32 counts written once) over the
+    memory rate. Returns (ms, bound_by)."""
+    acc, don = args[0], args[1]
+    F, _, n_rows = acc.shape
+    n_cols = don.shape[2]
+    width = args[6] if slab else n_cols
+    in_bytes = 4 * (acc.numel() + 3 * don.numel() + args[5 if slab else 4].numel())
+    if slab:
+        in_bytes += 4 * args[4].numel()
+    out_bytes = 4 * F * (n_rows + n_cols)
+    t_ops = (F * n_acc * width * HB_PAIR_FLOPS + within * HB_ANGLE_FLOPS) / PEAK_FP32 * 1e3
+    t_bytes = (in_bytes + out_bytes) / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _hb_mismatch(label, pos, boxes, top, got, want):
+    """Stop with the (frame, water) totals that differ between the kernel
+    path and the arccos form, and each differing water-water pair's margins
+    to the distance and angle cuts (float64)."""
+    import numpy as np
+    import torch
+    from waterorderlib_tpu_torch.drivers import hbonds_driver
+    from waterorderlib_tpu_torch.hbonds import bonds
+    from waterorderlib_tpu_torch.ops.cuda import hbond
+
+    bad = torch.nonzero(got != want).tolist()
+    lines = [f"{label}: {len(bad)} per-water totals differ, e.g. (frame, water, kernel path, "
+             f"arccos) {[(f, w, int(got[f, w]), int(want[f, w])) for f, w in bad[:8]]}"]
+    (wa, wd, wdh), _, _ = hbonds_driver.hb_sets(top, "WAT", pos.device)[0]
+    for f, w in bad[:8]:
+        acc, don, donh = (pos[f : f + 1, i] for i in (wa, wd, wdh))
+        b = boxes[f : f + 1]
+        m_arc = bonds.general_hbonds(acc, don, donh, b, HB_DIST, HB_ANG)[0]
+        prep = hbond.dense_prep(acc, don, donh, b)
+        box_l = b[:, :, None, None]
+        ds, cc = (torch.tensor(v, dtype=torch.float32, device=pos.device)
+                  for v in (HB_DIST * HB_DIST, hbond.cos_cut(HB_ANG)))
+        m_cos = hbond._bonds(prep.acc[:, :, :, None], prep.don[:, :, None, :],
+                             prep.donh[:, :, None, :], prep.vhat[:, :, None, :], box_l, ds, cc)[0]
+        for i, j in torch.nonzero(m_arc != m_cos).tolist():
+            if i != w and j // 2 != w:
+                continue
+            a, d, h = (x[0, k].double().cpu().numpy() for x, k in ((acc, i), (don, j), (donh, j)))
+            L = b[0].double().cpu().numpy()
+            dv = d - a - L * np.round((d - a) / L)
+            u = a - h - L * np.round((a - h) / L)
+            v = d - h - L * np.round((d - h) / L)
+            ang = np.degrees(np.arccos(np.dot(u, v) / np.linalg.norm(u) / np.linalg.norm(v)))
+            lines.append(f"  frame {f} acceptor {i} donor {j}: arccos {bool(m_arc[i, j])}, kernel "
+                         f"{bool(m_cos[i, j])}, |d| - cut = {np.linalg.norm(dv) - HB_DIST:.3e} A, "
+                         f"angle - cut = {ang - HB_ANG:.3e} degrees")
+    print("\n".join(lines), flush=True)
+    raise AssertionError(lines[0])
+
+
 def _stages(label, driver_fn):
     """One more (warm) driver call under the drivers' stage clock: the wall
     time of each of its named steps, the device synchronised between them.
@@ -374,10 +552,13 @@ def _stages(label, driver_fn):
     return t
 
 
-def _slice(label, driver_fn, kernels, name, tier_of, want_tier, files, n_results):
+def _slice(label, driver_fn, kernels, name, tier_of, want_tier, files, n_results,
+           shape=(500, 2), hist_sum=None):
     """Run a driver with every kernel's and plain version's counter set to
     0; check tier, the launches of kernel `name`, that no plain version was
-    called, files and finite statistics. Returns the launches."""
+    called, files of `shape` (the first file's counts summing to `hist_sum`,
+    as far as the files' %.3e shows, where given) and finite results (each a [means, CIs] pair or a number).
+    Returns the launches."""
     import numpy as np
     import torch
 
@@ -393,16 +574,21 @@ def _slice(label, driver_fn, kernels, name, tier_of, want_tier, files, n_results
         launches, tier = kernel.launches, tier_of()
         plain_calls = sum(p.calls for _, p in kernels.values())
         hists = [np.loadtxt(os.path.join(out_dir, f)) for f in files]
+    pairs = [r if isinstance(r, (list, tuple)) else [r] for r in res]
     print(f"[slice] {label}: tier={tier} {kernel.__name__} launches={launches} "
           f"plain calls={plain_calls} wall={wall:.3f} s "
-          f"means={[np.asarray(r[0]).tolist() for r in res]}", flush=True)
+          f"means={[np.asarray(r[0]).tolist() for r in pairs]}", flush=True)
     _check(tier == want_tier, f"{label} took tier {tier}, not {want_tier}")
     _check(launches > 0, f"{label} never launched {kernel.__name__}")
     _check(plain_calls == 0, f"{label} called a plain version")
-    _check(all(h.shape == (500, 2) for h in hists), f"{label}: histogram files are not (500, 2)")
+    _check(all(h.shape == shape for h in hists), f"{label}: histogram files are not {shape}")
     _check(all(int(h[:, 1].sum()) > 0 for h in hists), f"{label}: empty histogram")
+    # the files print counts as %.3e: each bin within half a unit of its
+    # fourth significant digit
+    _check(hist_sum is None or abs(hists[0][:, 1].sum() - hist_sum) <= 5e-4 * hist_sum,
+           f"{label}: {files[0]} counts {hists[0][:, 1].sum()}, not {hist_sum}")
     _check(len(res) == n_results, f"{label}: {len(res)} results, not {n_results}")
-    _check(all(np.all(np.isfinite(np.asarray(a))) for r in res for a in r),
+    _check(all(np.all(np.isfinite(np.asarray(a))) for r in pairs for a in r),
            f"{label}: statistics not finite")
     return launches
 
@@ -421,7 +607,9 @@ def main() -> int:
     from waterorderlib_tpu_torch.io.synthetic import make_water_box
     from waterorderlib_tpu_torch.io.trajectory import Trajectory
     from waterorderlib_tpu_torch.ops import pairs
-    from waterorderlib_tpu_torch.ops.cuda import angles, build, lsi, psi6, qtet2
+    from waterorderlib_tpu_torch.drivers import hbonds_driver
+    from waterorderlib_tpu_torch.hbonds import bonds, populations
+    from waterorderlib_tpu_torch.ops.cuda import angles, build, hbond, lsi, psi6, qtet2
     from waterorderlib_tpu_torch.order import angles as angles_ref
     from waterorderlib_tpu_torch.order import lsi as lsi_ref
     from waterorderlib_tpu_torch.order import psi6 as psi6_ref
@@ -437,8 +625,8 @@ def main() -> int:
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}",
           flush=True)
     t0 = time.perf_counter()
-    build.build_all(["qtet_window", "nbr_window", "lsi_window"])
-    print(f"[build] qtet_window.cu, nbr_window.cu and lsi_window.cu built in parallel in "
+    build.build_all(["qtet_window", "nbr_window", "lsi_window", "hbond"])
+    print(f"[build] qtet_window.cu, nbr_window.cu, lsi_window.cu and hbond.cu built in parallel in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
@@ -452,6 +640,8 @@ def main() -> int:
         "psi6_window": (psi6.psi6_window, psi6.psi6_window_plain),
         "lsi_window": (lsi.lsi_window, lsi.lsi_window_plain),
         "lsi_split_window": (lsi.lsi_split_window, lsi.lsi_split_window_plain),
+        "hbond_dense": (hbond.hbond_dense, hbond.hbond_dense_plain),
+        "hbond_slab": (hbond.hbond_slab, hbond.hbond_slab_plain),
     }
 
     # 2. kernels against plain versions, at the main paths' shapes
@@ -552,6 +742,55 @@ def main() -> int:
            and bool((got[2] == want[2]).all()),
            f"cluster box: K=24 slab result differs from its plain brute form ({err_cl})")
     del sh, cl, cl_boxes, clean, got, want
+
+    # both H-bond kernels on 4096 waters x 8 frames of make_water_box: the
+    # water-water sets; the JAX package's asymmetric sets (37 pseudo-donors
+    # shifted 0.3 A, hydrogens 0.8 A further; 3.0 A, 150 degrees); the same
+    # frames with a third of the stored atoms shifted by +/-L, which the
+    # kernels' wrap must absorb; the slab kernel at the certified
+    # dispatch's window against its plain version and the dense kernel, and
+    # at w = 512, where `covered` must fail
+    hd_k, hd_p = kernels["hbond_dense"]
+    hs_k, hs_p = kernels["hbond_slab"]
+    _, hb_traj = make_water_box(N_WATERS, n_frames=N_FRAMES_CMP, seed=0)
+    hb_pos = torch.as_tensor(hb_traj.positions, device=dev)
+    hb_boxes = torch.as_tensor(hb_traj.boxes, device=dev)
+    rs_hb = np.random.RandomState(5)
+    some = rs_hb.uniform(size=hb_traj.positions.shape[:2]) < 1.0 / 3.0
+    hb_shift = hb_pos + torch.as_tensor(rs_hb.randint(-1, 2, size=hb_traj.positions.shape)
+                                        * some[..., None], dtype=torch.float32,
+                                        device=dev) * hb_boxes[:, None, :]
+    w_sets = _hb_water_sets(hb_pos, N_WATERS)
+    sol = w_sets[0][:, :37] + 0.3
+    dense_counts = {}
+    for label, sets, cuts in (("water-water", w_sets, (HB_DIST, HB_ANG)),
+                              ("37 pseudo-donors, 3.0 A / 150 deg",
+                               (w_sets[0], sol, sol + 0.8), (3.0, 150.0)),
+                              ("water-water, +/-L shifts", _hb_water_sets(hb_shift, N_WATERS),
+                               (HB_DIST, HB_ANG))):
+        args = _hb_dense_args(*sets, hb_boxes, *cuts)
+        errs["hbond_dense"].append(_cmp(f"dense, {label}", hd_k, hd_p, args, (0, 0)))
+        dense_counts[label] = hd_k(*args)
+    same = [torch.equal(a, b) for a, b in zip(dense_counts["water-water"],
+                                             dense_counts["water-water, +/-L shifts"])]
+    print(f"[kernel] hbond_dense: +/-L-shifted stored atoms give the unshifted counts: {same}; "
+          f"bonds {int(dense_counts['water-water'][0].sum())} (water-water), "
+          f"{int(dense_counts['37 pseudo-donors, 3.0 A / 150 deg'][0].sum())} (37 donors)",
+          flush=True)
+    _check(all(same), "hbond_dense: shifting stored atoms by +/-L changed the counts")
+    for label, sets in (("water-water", w_sets),
+                        ("water-water, +/-L shifts", _hb_water_sets(hb_shift, N_WATERS))):
+        prep, args = _hb_slab_args(*sets, hb_boxes)
+        _check(bool(prep.covered.all()), f"hbond slab prep not covered ({label})")
+        errs["hbond_slab"].append(_cmp(f"slab (w={prep.w}), {label}", hs_k, hs_p, args, (0, 0)))
+        got = hbond.unsort_two_set(prep, *hs_k(*args))
+        _check(all(torch.equal(g, d) for g, d in zip(got, dense_counts[label])),
+               f"hbond_slab ({label}) differs from hbond_dense")
+    small, _ = _hb_slab_args(*w_sets, hb_boxes, window_w=512)
+    print(f"[kernel] hbond_slab equals hbond_dense on every acceptor and donor; at w=512 covered="
+          f"{small.covered.tolist()}", flush=True)
+    _check(not bool(small.covered.any()), "hbond slab prep at w=512 certified a frame")
+    del hb_pos, hb_shift, w_sets, sol, dense_counts, small
 
     # 3. the q_tet slice, through the user's entry point
     top, traj = make_water_box(N_WATERS, n_frames=N_FRAMES_SLICE, seed=0)
@@ -687,6 +926,76 @@ def main() -> int:
     split_boxes = torch.as_tensor(traj_s.boxes, dtype=torch.float32, device=dev)
     del top_s, traj_s
 
+    # the H-bond slice, through the user's entry points: hb_calc and
+    # get_bound_wrap on 4096 waters x 1024 frames with a solute whose nine
+    # acceptor x donor sets are all non-empty (the dense tier), held on 16
+    # frames against the arccos form `bonds.general_hbond_counts`; hb_calc
+    # at 16,384 waters x 64 frames (the slab tier)
+    top_h, traj_h = make_water_box(N_WATERS, n_frames=N_FRAMES_SLICE, seed=0,
+                                   solute_elements=HB_SOLUTE)
+    hb_files = ["hbDistribution_water.txt", "hbDistribution_cosolv.txt"]
+
+    def hb_drive(d):
+        return hbonds_driver.hb_calc(top_h, traj_h, output_dir=d, device="cuda")
+
+    launches["hbond_dense"] = _slice(
+        f"hb_calc {N_WATERS} waters + solute x {N_FRAMES_SLICE} frames", hb_drive, kernels,
+        "hbond_dense", lambda: hbond.last_tier, "dense", hb_files, 2, shape=(10, 2),
+        hist_sum=N_WATERS * N_FRAMES_SLICE,
+    )
+    sets_h, n_sol_h, _ = hbonds_driver.hb_sets(top_h, "WAT", dev)
+    p_ref = torch.as_tensor(traj_h.positions[:N_FRAMES_HB_REF], device=dev)
+    b_ref = torch.as_tensor(traj_h.boxes[:N_FRAMES_HB_REF], device=dev)
+    got = hbonds_driver.hb_totals(p_ref, b_ref, sets_h, n_sol_h)
+    want = hbonds_driver.hb_totals(p_ref, b_ref, sets_h, n_sol_h,
+                                   water_counts=bonds.general_hbond_counts,
+                                   counts=bonds.general_hbond_counts)
+    if not torch.equal(got[0], want[0]):
+        _hb_mismatch("hb_calc slice", p_ref, b_ref, top_h, got[0], want[0])
+    _check(torch.equal(got[1], want[1]), "hb_calc slice: per-cosolvent totals differ")
+    print(f"[slice] hb_calc, {N_FRAMES_HB_REF} frames: per-water and per-cosolvent totals equal "
+          f"the arccos form's (general_hbonds on the card); mean per water "
+          f"{float(got[0].float().mean()):.4f}, cosolvent {got[1][:, 0].tolist()[:4]}...",
+          flush=True)
+
+    torch.cuda.synchronize()
+    for k, p in kernels.values():
+        k.launches, p.calls = 0, 0
+    t0 = time.perf_counter()
+    bw = hbonds_driver.get_bound_wrap(top_h, traj_h, device="cuda")
+    torch.cuda.synchronize()
+    bw_wall = time.perf_counter() - t0
+    bw_launches = hd_k.launches
+    bw_plain = sum(p.calls for _, p in kernels.values())
+    wat_h = top_h.get_wat_inds()[0]
+    _, (_, _, donh_h) = hbonds_driver._water_triplets(top_h, "WAT")
+    sol_h, triplet_o, _ = hbonds_driver._sol_hb_triplets(top_h, "WAT")
+    ref = populations.bound_wrap_masks(
+        *(p_ref[:, torch.as_tensor(i, device=dev)] for i in (wat_h, donh_h, sol_h, *triplet_o)),
+        b_ref, counts=bonds.general_hbond_counts)
+    ref = [m.cpu().numpy() for m in (ref.bound, ref.wrap, ref.shell, ref.non_shell)]
+    bw_equal = all(np.array_equal(bw[t][k], wat_h[ref[k][t]])
+                   for t in range(N_FRAMES_HB_REF) for k in range(4))
+    print(f"[slice] get_bound_wrap {N_WATERS} waters + solute x {N_FRAMES_SLICE} frames: "
+          f"hbond_dense launches={bw_launches} plain calls={bw_plain} wall={bw_wall:.3f} s; "
+          f"frame 0 bound/wrap/shell/non-shell {[len(x) for x in bw[0]]}; {N_FRAMES_HB_REF} "
+          f"frames equal the plain masks with general_hbond_counts: {bw_equal}", flush=True)
+    _check(len(bw) == N_FRAMES_SLICE and bw_launches == 2 and bw_plain == 0,
+           "get_bound_wrap did not run the dense kernel twice without plain calls")
+    _check(bw_equal, "get_bound_wrap differs from the plain masks")
+    _check(sum(len(f[2]) for f in bw) > 0 and sum(len(f[0]) for f in bw) > 0,
+           "get_bound_wrap: no shell or no bound water in any frame")
+    del p_ref, b_ref, got, want, bw, ref
+
+    top_hs, traj_hs = make_water_box(N_HB_SLAB, n_frames=N_FRAMES_HB_SLAB, seed=0)
+    launches["hbond_slab"] = _slice(
+        f"hb_calc {N_HB_SLAB} waters x {N_FRAMES_HB_SLAB} frames",
+        lambda d: hbonds_driver.hb_calc(top_hs, traj_hs, output_dir=d, device="cuda"), kernels,
+        "hbond_slab", lambda: hbond.last_tier, "slab", hb_files, 2, shape=(10, 2),
+        hist_sum=N_HB_SLAB * N_FRAMES_HB_SLAB,
+    )
+    _stages("hb_calc", hb_drive)
+
     # 5. each kernel's time at its slice's own launch (all 1024 frames, slab
     # form, as the certified dispatch plans it); plain version on 64 frames
     mains = {
@@ -716,6 +1025,36 @@ def main() -> int:
               f"{width}): kernel {ms:.5f} ms/frame (F={n_frames}), plain "
               f"{plain_ms:.5f} ms/frame (F={nf}), bound {bound / n_frames:.5f} "
               f"ms/frame ({bound_by}); {card}", flush=True)
+
+    # the H-bond kernels at their slices' launches: hbond_dense on the
+    # water-water sets of hb_calc's 4096 waters x 1024 frames, hbond_slab on
+    # 16,384 waters x 64 frames and, for the crossover, on the 4096-water
+    # frames; plain versions on N_FRAMES_HB_PLAIN frames
+    bh = torch.as_tensor(traj_h.boxes, device=dev)
+    bh16 = torch.as_tensor(traj_hs.boxes, device=dev)
+    wh = _hb_water_sets(torch.as_tensor(traj_h.positions, device=dev), N_WATERS)
+    wh16 = _hb_water_sets(torch.as_tensor(traj_hs.positions, device=dev), N_HB_SLAB)
+    prep4, slab4 = _hb_slab_args(*wh, bh)
+    prep16, slab16 = _hb_slab_args(*wh16, bh16)
+    within4, within16 = _hb_within(prep4, bh), _hb_within(prep16, bh16)
+    for name, label, args, within, na, main in (
+            ("hbond_dense", f"{N_WATERS} waters", _hb_dense_args(*wh, bh), within4, N_WATERS,
+             True),
+            ("hbond_slab", f"{N_HB_SLAB} waters, w={prep16.w}", slab16, within16, N_HB_SLAB, True),
+            ("hbond_slab", f"{N_WATERS} waters, w={prep4.w}", slab4, within4, N_WATERS, False)):
+        kern, plain = kernels[name]
+        n_frames, nf = args[0].shape[0], N_FRAMES_HB_PLAIN
+        sub = tuple(a[:nf] if torch.is_tensor(a) else a for a in args)
+        errs[name].append(_cmp(f"{label}, frames 0-{nf - 1}", kern, plain, sub, (0, 0)))
+        ms = _ms(kern, args, 10) / n_frames
+        plain_ms = _ms(plain, sub, 1) / nf
+        bound, bound_by = _hb_bound_ms(args, na, within, name == "hbond_slab")
+        if main:
+            times[name] = (ms, plain_ms, bound / n_frames, bound_by)
+        print(f"[time] {name} at {label} (F={n_frames}, {within / n_frames:.0f} pairs within "
+              f"{HB_DIST} A a frame): kernel {ms:.5f} ms/frame, plain {plain_ms:.5f} ms/frame "
+              f"(F={nf}), bound {bound / n_frames:.5f} ms/frame ({bound_by}); {card}", flush=True)
+    del wh, wh16, prep4, slab4, prep16, slab16, top_hs, traj_hs
     del wat_pos, end_pos, split_pos, split_boxes
 
     # 6. 131k and 1M atoms: the certified dispatch takes the slab tier, and
@@ -799,6 +1138,59 @@ def main() -> int:
                   f"{bound:.3f} ms/frame ({bound_by}); {card}", flush=True)
             del full, prep, raw, args, sub, k_out
         del bp, bb, lsi_cases, lp
+        torch.cuda.empty_cache()
+
+
+    # H-bonds at 131,072 and 349,525 waters (1,048,575 atoms), 1 frame: the
+    # certified dispatch takes the slab tier, the slab kernel equals the
+    # dense kernel on every acceptor and donor, and each kernel equals its
+    # plain version on two acceptor tiles (the first and the last)
+    for n_big in HB_LARGE:
+        hp_np, hb_np = _hb_water_frames(n_big, 1, seed=n_big % 997)
+        hp, hbx = torch.from_numpy(hp_np).to(dev), torch.from_numpy(hb_np).to(dev)
+        sets = _hb_water_sets(hp, n_big)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cert = hbond.hbond_counts_certified(*sets, hbx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tier = hbond.last_tier
+        dense = hbond.hbond_counts(*sets, hbx)
+        _check(tier == "slab", f"hbond_counts_certified at {n_big} waters took tier {tier}")
+        _check(all(torch.equal(c, d) for c, d in zip(cert, dense)),
+               f"hbond_slab differs from hbond_dense at {n_big} waters")
+        prep, sargs = _hb_slab_args(*sets, hbx)
+        dargs = _hb_dense_args(*sets, hbx)
+        n_tiles = prep.starts.shape[1]
+        sel = torch.cat([torch.arange(0, 128), torch.arange((n_tiles - 1) * 128, n_tiles * 128)])
+        sel = sel.to(dev)
+        s_sub = (sargs[0][:, :, sel].contiguous(), *sargs[1:4],
+                 sargs[4][:, [0, n_tiles - 1]].contiguous(), *sargs[5:])
+        d_sel = torch.cat([torch.arange(0, 128), torch.arange(n_big - 128, n_big)]).to(dev)
+        d_sub = (dargs[0][:, :, d_sel].contiguous(), *dargs[1:])
+        errs["hbond_slab"].append(_cmp(f"{n_big} waters, 2 acceptor tiles (w={prep.w})", hs_k,
+                                       hs_p, s_sub, (0, 0)))
+        errs["hbond_dense"].append(_cmp(f"{n_big} waters, 2 acceptor tiles", hd_k, hd_p, d_sub,
+                                        (0, 0)))
+        real = sel < n_big
+        s_out, d_out = hs_k(*s_sub)[0], hd_k(*d_sub)[0]
+        _check(torch.equal(s_out[0, real], dense[0][0, prep.order_a[0, sel[real]]])
+               and torch.equal(d_out[0], dense[0][0, d_sel]),
+               f"H-bond kernels at {n_big}: 2-tile launches differ from the full launches")
+        within = _hb_within(prep, hbx)
+        for name, kern, plain, args, sub, n_sub_tiles in (
+                ("hbond_dense", hd_k, hd_p, dargs, d_sub, -(-n_big // 128)),
+                ("hbond_slab", hs_k, hs_p, sargs, s_sub, n_tiles)):
+            ms = _ms(kern, args, 1 if name == "hbond_dense" else 3)
+            plain_ms = _ms(plain, sub, 1) * n_sub_tiles / 2
+            bound, bound_by = _hb_bound_ms(args, n_big, within, name == "hbond_slab")
+            width = f"w={prep.w}" if name == "hbond_slab" else f"{2 * n_big} donors"
+            print(f"[large] {name} {n_big} waters ({3 * n_big} atoms, {width}, {within} pairs "
+                  f"within {HB_DIST} A): certified call {wall:.3f} s, tier={tier}; kernel "
+                  f"{ms:.3f} ms/frame, plain {plain_ms:.1f} ms/frame (2 acceptor tiles timed, "
+                  f"scaled by {n_sub_tiles}/2), bound {bound:.3f} ms/frame ({bound_by}); {card}",
+                  flush=True)
+        del hp, hbx, sets, cert, dense, prep, sargs, dargs, s_sub, d_sub
         torch.cuda.empty_cache()
 
     # no jax, and nothing of the JAX package

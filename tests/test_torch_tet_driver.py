@@ -106,8 +106,9 @@ def test_cli_tet_on_cpu(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing the port and running its drivers leaves jax, and every
-    module of the JAX package, out of sys.modules."""
+    """Importing the port and running its drivers (the four order
+    parameters, hb_calc and get_bound_wrap) leaves jax, and every module of
+    the JAX package, out of sys.modules."""
     import __graft_entry__ as g
 
     code = (
@@ -118,6 +119,10 @@ def test_port_imports_no_jax(tmp_path):
         "top, traj = make_water_box(64, n_frames=2, seed=0)\n"
         "for fn in (op.tet_order_calc, op.three_body_calc, op.hex_order_calc, op.lsi_calc):\n"
         f"    fn(top, traj, output_dir={str(tmp_path)!r}, device='cpu')\n"
+        "from waterorderlib_tpu_torch.drivers import hbonds_driver as hd\n"
+        "stop, straj = make_water_box(64, n_frames=2, seed=0, solute_elements=['C', 'O', 'H'])\n"
+        f"hd.hb_calc(stop, straj, output_dir={str(tmp_path)!r}, device='cpu')\n"
+        "assert len(hd.get_bound_wrap(stop, straj, device='cpu')) == 2\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'waterorderlib_tpu' or m.startswith('waterorderlib_tpu.')]\n"

@@ -5,6 +5,8 @@
     python -m waterorderlib_tpu_torch 3body sys.json sys.npz --output-dir out/
     python -m waterorderlib_tpu_torch psi sys.json sys.npz --output-dir out/
     python -m waterorderlib_tpu_torch lsi sys.json sys.npz --output-dir out/
+    python -m waterorderlib_tpu_torch hb sys.json sys.npz --output-dir out/
+    python -m waterorderlib_tpu_torch boundwrap sys.json sys.npz --cache bw.npz
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+import numpy as np
 
 
 def _add_common(p):
@@ -44,6 +48,10 @@ def main(argv=None):
          [("--high-cut", float, 3.413), ("--max-neighbors", int, 16)]),
         ("psi", "hexagonal order parameter psi6", [("--high-cut", float, 7.0)]),
         ("lsi", "local structure index", [("--high-cut", float, 3.7)]),
+        ("hb", "H-bonds per water and per cosolvent molecule",
+         [("--dist-cut", float, 3.5), ("--ang-cut", float, 120.0)]),
+        ("boundwrap", "bound/wrap/shell/non-shell waters per frame",
+         [("--cutoff", float, 4.0), ("--cache", str, "")]),
     ]:
         p = sub.add_parser(name, help=helptext)
         _add_common(p)
@@ -64,6 +72,30 @@ def main(argv=None):
         traj.save(args.out + ".npz", topology=top)
         print(f"wrote {args.out}.json and {args.out}.npz "
               f"({traj.n_frames} frames, {traj.n_atoms} atoms)")
+        return 0
+
+    if args.cmd == "hb":
+        from waterorderlib_tpu_torch.drivers.hbonds_driver import hb_calc
+
+        avg_wat, avg_sol = hb_calc(
+            args.top, args.traj, wat_res=args.wat_res, stride=args.stride,
+            dist_cut=args.dist_cut, ang_cut=args.ang_cut, output_dir=args.output_dir,
+            chunk_frames=args.chunk_frames or None, mesh=args.mesh or None, device=args.device,
+        )
+        print(json.dumps({"avgWatHBs": avg_wat, "avgSolHBs": avg_sol}))
+        return 0
+    if args.cmd == "boundwrap":
+        from waterorderlib_tpu_torch.drivers.hbonds_driver import get_bound_wrap
+
+        res = get_bound_wrap(args.top, args.traj, wat_res=args.wat_res, cutoff=args.cutoff,
+                             device=args.device)
+        if args.cache:
+            np.savez_compressed(
+                args.cache,
+                **{f"frame{t}_{k}": np.asarray(v) for t, frame in enumerate(res)
+                   for k, v in zip(("bound", "wrap", "shell", "nonshell"), frame)},
+            )
+        print(json.dumps({"sizes_per_frame": [[len(x) for x in frame] for frame in res]}))
         return 0
 
     from waterorderlib_tpu_torch.drivers import orderparams

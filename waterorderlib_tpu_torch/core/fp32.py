@@ -23,3 +23,15 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     float64; the float64 sum rounds once more only if it falls exactly
     halfway between two floats."""
     return (a.double() * b.double() + c.double()).float()
+
+
+def xla_dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last (xyz) axis of a * b as a fused multiply-add
+    chain: a0*b0, then fma(a1, b1, .), then fma(a2, b2, .). It is the
+    contraction XLA's CPU backend gives the JAX package's norms, sums of
+    products over xyz and einsums; near 0 and 180 degrees arccos turns one
+    ulp of cosine into ~1e-4 degrees, so the order is kept."""
+    acc = a[..., 0] * b[..., 0]
+    for i in (1, 2):
+        acc = fma_f32(a[..., i], b[..., i], acc)
+    return acc

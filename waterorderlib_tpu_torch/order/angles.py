@@ -4,7 +4,7 @@ waterorderlib_tpu.order.angles), plain PyTorch.
 All angles live in a fixed-shape (Ns, K, K) tensor with a validity mask
 instead of the reference's ragged list. Pair cosines are elementwise
 products summed over xyz, never a matrix product, so no TF32 path can lower
-their precision on the card (`_dot3`); the arccos is `torch.acos`, as the JAX
+their precision on the card (`core.fp32.xla_dot3`); the arccos is `torch.acos`, as the JAX
 package's XLA path uses `arccos`. This is the independent plain path that
 the kernel path (ops/cuda/angles.py) is checked against.
 """
@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from waterorderlib_tpu_torch.core import pbc
-from waterorderlib_tpu_torch.core.fp32 import fma_f32, sqrt_f32
+from waterorderlib_tpu_torch.core.fp32 import sqrt_f32, xla_dot3 as _dot3
 from waterorderlib_tpu_torch.ops import histograms, pairs
 
 
@@ -31,18 +31,6 @@ class AngleSet(NamedTuple):
     ang: torch.Tensor
     valid: torch.Tensor
     count: torch.Tensor
-
-
-def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """f32 sum over the last (xyz) axis of a * b as a fused multiply-add
-    chain: a0*b0, then fma(a1, b1, .), then fma(a2, b2, .). It is the
-    contraction XLA's CPU backend gives the JAX package's norm and einsum;
-    near 0 and 180 degrees arccos turns one ulp of cosine into ~1e-4
-    degrees, so the order is kept."""
-    acc = a[..., 0] * b[..., 0]
-    for i in (1, 2):
-        acc = fma_f32(a[..., i], b[..., i], acc)
-    return acc
 
 
 def _unit(rel: torch.Tensor) -> torch.Tensor:
