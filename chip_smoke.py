@@ -57,13 +57,26 @@ Phases (each raises on failure; nothing is caught):
    tiles only; H-bonds at 131,072 and 349,525 waters (1,048,575 atoms), 1
    frame: the certified dispatch takes the slab tier, the slab kernel
    equals the dense kernel on every acceptor and donor, and each equals its
-   plain version on two acceptor tiles.
+   plain version on two acceptor tiles;
+7. the interface slice: `density_grid` at its defaults (80^3 grid points)
+   on 4096 waters and a 6-atom solute, the box's z edge doubled (a liquid
+   slab under vapour; fixture A), must take the x tier with one
+   `willard_grid` launch and a mesh of more than 1000 faces, and with
+   window_x=8 the certificate fails and one `willard_points` launch
+   serves; fixture A's field equals `fields.willard_density_field` (the
+   points kernel); the grid kernel in its x, plane and brute forms and the
+   points kernel against their plain versions on the whole grid; their
+   times, with bounds whose expf and division costs are read from the SASS
+   of a probe; fixture B, 32,768
+   waters, must take a grid tier and equal the points kernel on three
+   planes; a warm `density_grid` under the stage clock.
 
 The last line is one JSON object, {"ok": true, "device": {...}}; before it
 come a JSON line of the kernels (launches in their slice, largest error
-against the plain version, times per frame of the kernel, the plain version
-and the bound, "bound_by"; "library_ms" is null: no single PyTorch call
-computes these functions), and the card's name and power limit. Without a
+against the plain version, times per frame (the Willard kernels: per call
+on fixture A) of the kernel, the plain version and the bound, "bound_by";
+"library_ms" is null: no single PyTorch call computes these functions), and
+the card's name and power limit. Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero and
 prints no result. Imports nothing of JAX and nothing of the JAX package.
 """
@@ -117,14 +130,18 @@ SOURCES = {"qtet_window": "waterorderlib_tpu_torch/ops/cuda/csrc/qtet_window.cu"
            "lsi_window": "waterorderlib_tpu_torch/ops/cuda/csrc/lsi_window.cu",
            "lsi_split_window": "waterorderlib_tpu_torch/ops/cuda/csrc/lsi_window.cu",
            "hbond_dense": "waterorderlib_tpu_torch/ops/cuda/csrc/hbond.cu",
-           "hbond_slab": "waterorderlib_tpu_torch/ops/cuda/csrc/hbond.cu"}
+           "hbond_slab": "waterorderlib_tpu_torch/ops/cuda/csrc/hbond.cu",
+           "willard_grid": "waterorderlib_tpu_torch/ops/cuda/csrc/willard.cu",
+           "willard_points": "waterorderlib_tpu_torch/ops/cuda/csrc/willard.cu"}
 REPLACES = {"qtet_window": "waterorderlib_tpu/ops/pallas/qtet2.py:111",
             "angles_window": "waterorderlib_tpu/ops/pallas/angles_kernel.py:159",
             "psi6_window": "waterorderlib_tpu/ops/pallas/psi6_kernel.py:163",
             "lsi_window": "waterorderlib_tpu/ops/pallas/lsi_kernel.py:177",
             "lsi_split_window": "waterorderlib_tpu/ops/pallas/lsi_slab2.py:235",
             "hbond_dense": "waterorderlib_tpu/ops/pallas/hbond_kernel.py:153",
-            "hbond_slab": "waterorderlib_tpu/ops/pallas/hbond_slab.py:193"}
+            "hbond_slab": "waterorderlib_tpu/ops/pallas/hbond_slab.py:193",
+            "willard_grid": "waterorderlib_tpu/ops/pallas/willard_grid.py:358, :375",
+            "willard_points": "waterorderlib_tpu/ops/pallas/willard_kernel.py:102"}
 # the H-bond slice: hb_calc's default cuts; a solute with one O acceptor,
 # one O-H donor, one N acceptor and two N-H donors, so that each of the nine
 # acceptor x donor sets is non-empty; the slab tier's size
@@ -143,6 +160,29 @@ HB_LARGE = (131_072, 349_525)  # waters; 349,525 x 3 = 1,048,575 atoms
 # multiply and a compare
 HB_PAIR_FLOPS = PAIR_FLOPS + 2
 HB_ANGLE_FLOPS = 22
+# the interface slice: density_grid's defaults (81 bins: 80^3 grid points,
+# smoothlen 2.4, level 0.016) on the JAX bench's 4096 waters with a 6-atom
+# solute, the box's z edge doubled (a liquid slab under vapour), and the
+# uncapped grid tier's size
+WC_SOLUTE = ["C", "C", "O", "C", "C", "O"]
+N_WC_LARGE = 32_768
+WC_TOL = 1e-6       # kernel against plain version, each output (the same operations)
+WC_REF_TOL = 2e-6   # grid tiers against the points kernel: the JAX package's x-tier bound
+WC_DOT, WC_DOT_SHARE = 0.98, 0.999  # unit normals: dot > 0.98 on >= 99.9% of points
+# float32 operations the Willard fields need, beside EXPF and DIV, the
+# instructions nvcc emits for expf and for an IEEE division (counted from
+# the SASS in each run, `_sass_ops`); each term charged only to the pairs
+# that need it. Grid: per (x-row, atom) of a window 10 (2 subtracts, 4
+# minimum-image adds, dx^2 + dz^2, the 9 sigma^2 test); per (x-row, atom)
+# whose dx^2 + dz^2 is under 9 sigma^2 2 + EXPF (the x-z exponential: scale,
+# x peak); per (point, atom) of those 6 (subtract, 2 minimum-image adds,
+# square, add, the test); per pair within 3 sigma 12 + EXPF (scale, the
+# product with the x-z exponential, the sum, and negate, multiply, add for
+# each gradient sum). Points: per (point, atom) 21 (3 x subtract, x 1/L,
+# rint, x L, subtract; |d|^2; test); per pair within 3 sigma 10 + EXPF + DIV
+# (negate, divide, x peak, g - shift, add, 3 x multiply-add)
+WG_ROW_FLOPS, WG_ROW_NEAR_FLOPS, WG_STRIP_FLOPS, WG_INSIDE_FLOPS = 10, 2, 6, 12
+WP_PAIR_FLOPS, WP_INSIDE_FLOPS = 21, 10
 
 
 def _check(cond: bool, what: str) -> None:
@@ -592,6 +632,277 @@ def _slice(label, driver_fn, kernels, name, tier_of, want_tier, files, n_results
            f"{label}: statistics not finite")
     return launches
 
+_SASS_PROBE = r"""
+extern "C" __global__ void probe_expf(const float* x, float* y) {
+  y[threadIdx.x] = expf(x[threadIdx.x]);
+}
+extern "C" __global__ void probe_div(const float* x, const float* s, float* y) {
+  y[threadIdx.x] = x[threadIdx.x] / s[threadIdx.x];
+}
+"""
+
+
+def _sass_start():
+    """Start nvcc, with the kernels' flags, on a probe of expf and of a
+    float32 division, beside the kernels' build. Returns (process, its
+    directory)."""
+    from waterorderlib_tpu_torch.ops.cuda import build
+
+    d = tempfile.mkdtemp()
+    src = os.path.join(d, "probe.cu")
+    with open(src, "w") as f:
+        f.write(_SASS_PROBE)
+    cmd = [build._nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+           "--fmad=false", "-o", os.path.join(d, "probe.cubin"), src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), d
+
+
+def _sass_ops(proc, d):
+    """{"expf": n, "div": n}: the float32 instructions (opcodes F* and MUFU)
+    before each probe kernel's first EXIT in the SASS that cuobjdump shows
+    (the division's slow path, a subroutine after EXIT, is not counted)."""
+    import re
+    import shutil
+    from waterorderlib_tpu_torch.ops.cuda import build
+
+    _, err = proc.communicate()
+    _check(proc.returncode == 0, f"nvcc failed on the SASS probe: {err}")
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", os.path.join(d, "probe.cubin")],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    shutil.rmtree(d)
+    ops, fn, done = {}, None, False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn, done = m.group(1), False
+            ops[fn] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)(\.\S+)?", line)
+        if fn is None or done or not m:
+            continue
+        if m.group(1) == "EXIT":
+            done = True
+        elif m.group(1).startswith("F") or m.group(1) == "MUFU":
+            ops[fn].append(m.group(1) + (m.group(2) or ""))
+    out = {"expf": len(ops["probe_expf"]), "div": len(ops["probe_div"])}
+    print(f"[sass] float32 instructions: expf {out['expf']} {ops['probe_expf']}; division "
+          f"{out['div']} {ops['probe_div']}", flush=True)
+    _check(out["expf"] > 0 and out["div"] > 0, "SASS probe found no float32 instructions")
+    return out
+
+
+def _interface_system(n_waters, seed):
+    """(solute heavy atoms, water oxygens, box) of one frame of
+    make_water_box(n_waters, seed=seed, solute WC_SOLUTE), wrapped into its
+    box, whose z edge is then doubled: a liquid slab in z in [0, L) under
+    vapour, the solute inside the liquid."""
+    import numpy as np
+    from waterorderlib_tpu_torch.io.synthetic import make_water_box
+
+    top, traj = make_water_box(n_waters, n_frames=1, seed=seed, solute_elements=WC_SOLUTE)
+    p = np.mod(traj.positions[0], traj.boxes[0])
+    box = traj.boxes[0].copy()
+    box[2] *= 2.0
+    return p[top.get_sol_inds()[0]], p[top.get_wat_inds()[0]], box
+
+
+def _wg_args(prep, box, grid):
+    """willard_grid's arguments for a prep's whole grid."""
+    return (prep.atoms, prep.starts, prep.w, box, grid)
+
+
+def _wg_counts(prep, box, grid):
+    """(row visits, near row visits, strip pairs, inside pairs) of a grid
+    launch: the (x-row, atom) pairs of its windows; those whose dx^2 + dz^2
+    is under 9 sigma^2; the (point, atom) pairs of those; the pairs within
+    3 sigma. The kernel's operations, plane by plane, on the card."""
+    import torch
+    from waterorderlib_tpu_torch.ops.cuda import willard
+
+    sig2 = willard.scalars(2.4)[0]
+    nine = torch.tensor(9.0, device=box.device) * torch.tensor(sig2, device=box.device)
+    gx, gy, gz = (willard._wrap(a, box[d]) for d, a in enumerate(willard.grid_axes(grid, box.device)))
+    nz, nx, ny = len(gz), len(gx), len(gy)
+    offs = torch.arange(prep.w, device=box.device)
+    near = inside = 0
+    for k in range(nz):
+        a = prep.atoms[k if prep.atoms.shape[0] > 1 else 0]
+        idx = prep.starts[k].long()[:, None] + offs  # (nx, w)
+        dx = willard._mi(gx[:, None] - a[0][idx], box[0])
+        dz = willard._mi(gz[k] - a[2][idx], box[2])
+        dxz = dx * dx + dz * dz
+        near += int((dxz < nine).sum())
+        dy = willard._mi(gy[None, :, None] - a[1][idx][:, None, :], box[1])
+        inside += int((dy * dy + dxz[:, None, :] < nine).sum())
+    return nz * nx * prep.w, near, near * ny, inside
+
+
+def _wg_bound_ms(prep, grid, counts, sass):
+    """Least time of one grid launch on these inputs: its float32 operations
+    (WG_*_FLOPS, and expf per near row visit and per pair within 3 sigma)
+    over the peak rate, or its bytes (atoms and starts read once, the four
+    outputs written once) over the memory rate. Returns (ms, bound_by)."""
+    rows, near, strip, inside = counts
+    (_, _, nx), (_, _, ny), (_, _, nz) = grid
+    ops = (rows * WG_ROW_FLOPS + near * (WG_ROW_NEAR_FLOPS + sass["expf"])
+           + strip * WG_STRIP_FLOPS + inside * (WG_INSIDE_FLOPS + sass["expf"]))
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = 4 * (prep.atoms.numel() + prep.starts.numel() + 4 * nx * ny * nz) / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _wp_bound_ms(n_atoms, n_points, inside, sass):
+    """Least time of one points launch: WP_PAIR_FLOPS per (point, atom),
+    WP_INSIDE_FLOPS, expf and a division per pair within 3 sigma, or the
+    bytes of atoms and points read once and four outputs written once."""
+    ops = n_points * n_atoms * WP_PAIR_FLOPS + inside * (WP_INSIDE_FLOPS + sass["expf"]
+                                                         + sass["div"])
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = 4 * (3 * n_atoms + 3 * n_points + 4 * n_points) / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _unit_dots(a, b):
+    """Share of points whose unit normals a and b (..., 3) have a dot above
+    WC_DOT or are both zero (no atom within 3 sigma: the vapour)."""
+    zero = (a == 0).all(dim=-1) & (b == 0).all(dim=-1)
+    return float((((a * b).sum(dim=-1) > WC_DOT) | zero).float().mean())
+
+
+def _willard_phases(card, kernels, errs, launches, times, sass):
+    """The interface slice: density_grid on fixture A (4096 waters, 80^3
+    grid: the x tier, one willard_grid launch) and with a window_x too
+    narrow (one willard_points launch), its field against the points
+    kernel, each kernel against its plain version on fixture A's whole grid
+    (the grid kernel in the x, plane and brute forms), their times and bounds,
+    fixture B (32,768 waters: a grid tier, equal to the points kernel on
+    three planes), and a warm density_grid under the stage clock."""
+    import numpy as np
+    import torch
+    from waterorderlib_tpu_torch.density import fields
+    from waterorderlib_tpu_torch.ops.cuda import willard
+    from waterorderlib_tpu_torch.surface import grids
+
+    dev = torch.device("cuda")
+    wg_k, wg_p = willard.willard_grid, willard.willard_grid_plain
+    wp_k, wp_p = willard.willard_points, willard.willard_points_plain
+    kernels["willard_grid"] = (wg_k, wg_p)
+    kernels["willard_points"] = (wp_k, wp_p)
+
+    def drive(label, heavy, wat, box_np, want_tiers, **kw):
+        """density_grid with every count at 0; returns (the two kernels'
+        launches, faces)."""
+        torch.cuda.synchronize()
+        for k, p in kernels.values():
+            k.launches, p.calls = 0, 0
+        t0 = time.perf_counter()
+        verts, faces = grids.density_grid(heavy, wat, box_np, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = (wg_k.launches, wp_k.launches)
+        plain = sum(p.calls for _, p in kernels.values())
+        print(f"[slice] density_grid {label}: tier={willard.last_tier} launches grid/points={ran} "
+              f"plain calls={plain} wall={wall:.3f} s; mesh {len(verts)} vertices, {len(faces)} "
+              f"faces", flush=True)
+        _check(willard.last_tier in want_tiers, f"density_grid {label} took tier "
+               f"{willard.last_tier}, not {want_tiers}")
+        _check(plain == 0, f"density_grid {label} called a plain version")
+        _check(len(faces) > 1000 and bool(np.isfinite(verts).all())
+               and int(faces.max()) < len(verts), f"density_grid {label}: mesh of {len(faces)} "
+               "faces, or not finite")
+        return ran, faces
+
+    heavy, wat, box_np = _interface_system(N_WATERS, seed=0)
+    ran, faces_x = drive(f"{N_WATERS} waters + solute (liquid slab), 80^3 grid", heavy, wat,
+                         box_np, ("x",))
+    _check(ran == (1, 0), f"density_grid launched grid/points {ran}, not (1, 0)")
+    launches["willard_grid"] = ran[0]
+    ran, faces_p = drive(f"{N_WATERS} waters + solute, window_x=8", heavy, wat, box_np,
+                         ("points",), window_x=8)
+    _check(ran == (0, 1), f"density_grid with a failing certificate launched {ran}, not (0, 1)")
+    launches["willard_points"] = ran[1]
+
+    grid = grids.grid_spec(heavy, box_np)
+    ng = grid[0][2]
+    pos = torch.as_tensor(wat, dtype=torch.float32, device=dev)
+    box = torch.as_tensor(box_np, dtype=torch.float32, device=dev)
+    axes = willard.grid_axes(grid, dev)
+    dens, norms = willard.density_grid_certified(pos, box, grid)
+    d_ref, n_ref = fields.willard_density_field(pos, *axes, box, nx=ng, ny=ng, nz=ng)
+    err, share = float((dens - d_ref).abs().max()), _unit_dots(norms, n_ref)
+    print(f"[slice] fixture A field (tier {willard.last_tier}) vs fields.willard_density_field "
+          f"(points kernel): max|d dens|={err:.3e}, normals dot>{WC_DOT} on {share:.6f}; density "
+          f"{float(dens.min()):.5f}..{float(dens.max()):.5f}; faces x tier {len(faces_x)}, "
+          f"points tier {len(faces_p)}", flush=True)
+    _check(err <= WC_REF_TOL and share >= WC_DOT_SHARE, "fixture A: grid field differs from the "
+           f"points kernel's ({err}, {share})")
+
+    preps = {"x": willard.grid_prep(pos, box, grid), "plane": willard.grid_prep(pos, box, grid,
+                                                                               window_x=0),
+             "brute": willard.brute_prep(pos, box, grid)}
+    for label, prep in preps.items():
+        _check(prep.tier == label and prep.covered, f"fixture A: {label} prep took {prep.tier}, "
+               f"covered={prep.covered}")
+        errs["willard_grid"].append(_cmp(f"{label} form (w={prep.w}), whole grid", wg_k, wg_p,
+                                         _wg_args(prep, box, grid), (WC_TOL,) * 4))
+    atoms_t = pos.t().contiguous()
+    pts = torch.stack(torch.meshgrid(*axes, indexing="ij")).reshape(3, -1)
+    n_pts = pts.shape[1]
+    errs["willard_points"].append(_cmp("whole grid", wp_k, wp_p, (atoms_t, pts, box),
+                                       (WC_TOL,) * 4))
+
+    for label, prep in preps.items():
+        counts = _wg_counts(prep, box, grid)
+        ms = _ms(wg_k, _wg_args(prep, box, grid), 10)
+        plain_ms = _ms(wg_p, _wg_args(prep, box, grid), 1)
+        bound, bound_by = _wg_bound_ms(prep, grid, counts, sass)
+        if label == "x":
+            times["willard_grid"] = (ms, plain_ms, bound, bound_by)
+            inside_a = counts[3]
+        print(f"[time] willard_grid {label} form, fixture A ({ng}^3 points, {N_WATERS} atoms, "
+              f"w={prep.w}; {counts[0]} row visits, {counts[1]} near row visits, {counts[2]} "
+              f"strip pairs, {counts[3]} pairs within 3 sigma): kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by}); {card}", flush=True)
+    ms = _ms(wp_k, (atoms_t, pts, box), 3)
+    plain_ms = _ms(wp_p, (atoms_t, pts, box), 1)
+    bound, bound_by = _wp_bound_ms(N_WATERS, n_pts, inside_a, sass)
+    times["willard_points"] = (ms, plain_ms, bound, bound_by)
+    print(f"[time] willard_points, fixture A ({n_pts} points x {N_WATERS} atoms, {inside_a} pairs "
+          f"within 3 sigma): kernel {ms:.5f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms "
+          f"({bound_by}); {card}", flush=True)
+    del preps, pts, dens, norms, d_ref, n_ref
+
+    # fixture B: the uncapped grid tier at 32,768 waters, against the points
+    # kernel on the first, middle and last planes
+    heavy_b, wat_b, box_b = _interface_system(N_WC_LARGE, seed=1)
+    ran, _ = drive(f"{N_WC_LARGE} waters + solute (liquid slab), 80^3 grid", heavy_b, wat_b,
+                   box_b, ("x", "plane"))
+    _check(ran == (1, 0), f"density_grid at {N_WC_LARGE} waters launched {ran}, not (1, 0)")
+    grid_b = grids.grid_spec(heavy_b, box_b)
+    pos_b = torch.as_tensor(wat_b, dtype=torch.float32, device=dev)
+    bx_b = torch.as_tensor(box_b, dtype=torch.float32, device=dev)
+    prep_b = willard.grid_prep(pos_b, bx_b, grid_b)
+    dens_b, norms_b = willard.density_grid_certified(pos_b, bx_b, grid_b)
+    ax, ay, az = willard.grid_axes(grid_b, dev)
+    err_b, share_b = 0.0, 1.0
+    for k in (0, ng // 2, ng - 1):
+        pk = torch.stack(torch.meshgrid(ax, ay, az[k : k + 1], indexing="ij"), dim=-1)
+        d, n = fields.willard_density_points(pos_b, pk.reshape(-1, 3), bx_b)
+        err_b = max(err_b, float((dens_b[:, :, k].reshape(-1) - d).abs().max()))
+        share_b = min(share_b, _unit_dots(norms_b[:, :, k].reshape(-1, 3), n))
+    ms_b = _ms(wg_k, _wg_args(prep_b, bx_b, grid_b), 10)
+    print(f"[large] density_grid {N_WC_LARGE} waters: tier {willard.last_tier} (w={prep_b.w}, "
+          f"{prep_b.atoms.shape[2]} atoms a plane array); planes 0, {ng // 2}, {ng - 1} vs the "
+          f"points kernel: max|d dens|={err_b:.3e}, normals dot>{WC_DOT} on {share_b:.6f}; grid "
+          f"kernel {ms_b:.5f} ms; {card}", flush=True)
+    _check(err_b <= WC_REF_TOL and share_b >= WC_DOT_SHARE,
+           f"fixture B: grid field differs from the points kernel's ({err_b}, {share_b})")
+    del pos_b, dens_b, norms_b, prep_b
+    torch.cuda.empty_cache()
+
+    _stages("density_grid", lambda d: grids.density_grid(heavy, wat, box_np, device="cuda"))
+
 
 def main() -> int:
     import torch
@@ -625,9 +936,11 @@ def main() -> int:
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}",
           flush=True)
     t0 = time.perf_counter()
-    build.build_all(["qtet_window", "nbr_window", "lsi_window", "hbond"])
-    print(f"[build] qtet_window.cu, nbr_window.cu, lsi_window.cu and hbond.cu built in parallel in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    sass = _sass_start()
+    build.build_all(["qtet_window", "nbr_window", "lsi_window", "hbond", "willard"])
+    print(f"[build] qtet_window.cu, nbr_window.cu, lsi_window.cu, hbond.cu and willard.cu built in "
+          f"parallel in {time.perf_counter() - t0:.2f} s", flush=True)
+    sass_ops = _sass_ops(*sass)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "Function properties" in line or "registers" in line or "spill" in line:
@@ -1192,6 +1505,9 @@ def main() -> int:
                   flush=True)
         del hp, hbx, sets, cert, dense, prep, sargs, dargs, s_sub, d_sub
         torch.cuda.empty_cache()
+
+    # 7. the Willard-Chandler interface slice
+    _willard_phases(card, kernels, errs, launches, times, sass_ops)
 
     # no jax, and nothing of the JAX package
     _check("jax" not in sys.modules, "jax was imported")

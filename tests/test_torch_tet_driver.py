@@ -107,8 +107,9 @@ def test_cli_tet_on_cpu(tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """Importing the port and running its drivers (the four order
-    parameters, hb_calc and get_bound_wrap) leaves jax, and every module of
-    the JAX package, out of sys.modules."""
+    parameters, hb_calc, get_bound_wrap, density_grid, sasa_grid and
+    density_voxel) leaves jax, and every module of the JAX package, out of
+    sys.modules."""
     import __graft_entry__ as g
 
     code = (
@@ -123,6 +124,12 @@ def test_port_imports_no_jax(tmp_path):
         "stop, straj = make_water_box(64, n_frames=2, seed=0, solute_elements=['C', 'O', 'H'])\n"
         f"hd.hb_calc(stop, straj, output_dir={str(tmp_path)!r}, device='cpu')\n"
         "assert len(hd.get_bound_wrap(stop, straj, device='cpu')) == 2\n"
+        "from waterorderlib_tpu_torch.surface import grids, plotting\n"
+        "w, s = top.get_wat_inds()[0], stop.get_sol_inds()[0]\n"
+        "p, sp, b = traj.positions[0], straj.positions[0], traj.boxes[0]\n"
+        "assert len(grids.density_grid(sp[s], p[w], b, level=0.03, n_bins=17, device='cpu')[1])\n"
+        "assert len(grids.sasa_grid(sp[s], b, [2.0] * len(s), n_bins=12, device='cpu')[1])\n"
+        "assert grids.density_voxel(sp[s], p[w], b, device='cpu').shape == (10, 10, 10)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'waterorderlib_tpu' or m.startswith('waterorderlib_tpu.')]\n"

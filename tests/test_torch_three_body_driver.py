@@ -21,6 +21,7 @@ import torch
 
 from waterorderlib_tpu.drivers import orderparams as jop
 from waterorderlib_tpu.io.synthetic import make_water_box as jax_box
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.drivers import orderparams as top_
 from waterorderlib_tpu_torch.io.synthetic import make_water_box as port_box
 
@@ -116,7 +117,7 @@ def test_stage_times_name_every_step_and_change_nothing(name, systems, tmp_path)
     for a, b in zip(plain, timed):
         np.testing.assert_array_equal(a[0], b[0])
         np.testing.assert_array_equal(a[1], b[1])
-    assert top_._stage_ms is None  # the clock is off after the block
+    assert clock._stage_ms is None  # the clock is off after the block
 
 
 @pytest.mark.parametrize("cmd,prefix,keys", [

@@ -23,9 +23,8 @@ import os
 import numpy as np
 import torch
 
-from waterorderlib_tpu_torch.drivers.orderparams import (
-    _device, _log_tier, _not_ported, _resolve_system, _stage_end,
-)
+from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end
+from waterorderlib_tpu_torch.drivers.orderparams import _log_tier, _not_ported, _resolve_system
 from waterorderlib_tpu_torch.hbonds import clusters as clusters_mod
 from waterorderlib_tpu_torch.hbonds.bonds import general_hbonds
 from waterorderlib_tpu_torch.hbonds.populations import bound_wrap_masks
@@ -132,7 +131,7 @@ def _hb_core(pos, boxes, sets, n_sol, dist_cut, ang_cut, n_bins):
     float32)."""
     wat_tot, sol_tot = hb_totals(pos, boxes, sets, n_sol, dist_cut, ang_cut)
     _log_tier("hb_calc", hbond.last_tier)
-    _stage_end("kernel stage")
+    stage_end("kernel stage")
     wat_tot, sol_tot = wat_tot.to(torch.float32), sol_tot.to(torch.float32)
     hists = tuple(
         histograms.masked_histogram_frames(v, torch.ones_like(v, dtype=torch.bool), n_bins, 0.0,
@@ -140,7 +139,7 @@ def _hb_core(pos, boxes, sets, n_sol, dist_cut, ang_cut, n_bins):
         for v in (wat_tot, sol_tot)
     )
     out = hists, (wat_tot.mean(dim=1), sol_tot.mean(dim=1))
-    _stage_end("stats (device)")
+    stage_end("stats (device)")
     return out
 
 
@@ -165,22 +164,22 @@ def hb_calc(
     ported yet.
     """
     _not_ported(mesh)
-    dev = _device(device)
+    dev = resolve_device(device)
     if chunk_frames is not None:
         top = top_file if isinstance(top_file, Topology) else load_topology(top_file)
         traj = None
     else:
         top, traj = _resolve_system(top_file, traj_file, stride)
     sets, n_sol, has_sol = hb_sets(top, wat_res, dev)
-    _stage_end("host gather")
+    stage_end("host gather")
     n_bins = 10
 
     def run(positions, boxes):
         pos, boxes_t = _to(positions, boxes, dev)
-        _stage_end("H2D")
+        stage_end("H2D")
         (hw, hs), (wm, sm) = _hb_core(pos, boxes_t, sets, n_sol, dist_cut, ang_cut, n_bins)
         out = hw.cpu().numpy(), hs.cpu().numpy(), wm.cpu().numpy(), sm.cpu().numpy()
-        _stage_end("D2H")
+        stage_end("D2H")
         return out
 
     if chunk_frames is not None:
@@ -195,7 +194,7 @@ def hb_calc(
     for name, h in (("water", h_wat), ("cosolv", h_sol)):
         np.savetxt(os.path.join(output_dir, f"hbDistribution_{name}.txt"),
                    np.stack([centers, h], axis=1), header="# hbs    frequency", fmt="%.3e")
-    _stage_end("savetxt")
+    stage_end("savetxt")
     avg_wat = float(np.mean(wat_means))
     avg_sol = float(np.mean(sol_means)) if has_sol else 0.0
     return avg_wat, avg_sol
@@ -222,24 +221,24 @@ def get_bound_wrap(
     tuples of *global atom indices* is returned; with a frame index, that
     frame's tuple (the reference's per-frame API).
     """
-    dev = _device(device)
+    dev = resolve_device(device)
     top, traj = _resolve_system(top_file, traj, 1)
     wat_inds, (_, _, wat_donh) = _water_triplets(top, wat_res)
     sol_inds, (sol_acc_o, sol_don_o, sol_donh_o), _ = _sol_hb_triplets(top, wat_res)
     sel = slice(None) if frame_index is None else slice(frame_index, frame_index + 1)
-    _stage_end("host gather")
+    stage_end("host gather")
     pos, boxes = _to(traj.positions[sel], traj.boxes[sel], dev)
-    _stage_end("H2D")
+    stage_end("H2D")
 
     def at(inds):
         return pos[:, torch.as_tensor(np.asarray(inds, np.int64), device=dev)]
 
     bw = bound_wrap_masks(at(wat_inds), at(wat_donh), at(sol_inds), at(sol_acc_o),
                           at(sol_don_o), at(sol_donh_o), boxes, cutoff, hb_dist, hb_ang)
-    _stage_end("kernel stage")
+    stage_end("kernel stage")
     bound, wrap, shell, non_shell = (m.cpu().numpy() for m in (bw.bound, bw.wrap, bw.shell,
                                                                 bw.non_shell))
-    _stage_end("D2H")
+    stage_end("D2H")
     out = [
         (wat_inds[bound[t]], wat_inds[wrap[t]], wat_inds[shell[t]], wat_inds[non_shell[t]])
         for t in range(bound.shape[0])
@@ -268,9 +267,9 @@ def _save_dist(output_dir, name, dist, header):
 def _stats_tail(output_dir, dist, series, seed):
     """clusterDistribution.txt and [mean, CI] of each per-frame series."""
     _save_dist(output_dir, "clusterDistribution.txt", dist, "cluster size    frequency")
-    _stage_end("savetxt")
+    stage_end("savetxt")
     out = [blocks.mean_and_ci(s, seed=seed) for s in series]
-    _stage_end("bootstrap (host)")
+    stage_end("bootstrap (host)")
     return out
 
 
@@ -296,7 +295,7 @@ def get_hb_cluster_stats(
     the cluster-size distribution summed over frames
     (clusterDistribution.txt) and returns [mean cluster size, CI] over
     frames."""
-    dev = _device(device)
+    dev = resolve_device(device)
     top, traj = _resolve_system(top_file, traj_file, stride)
     acceptor_inds, donor_inds, donor_h_inds = (np.asarray(a, int) for a in
                                                (acceptor_inds, donor_inds, donor_h_inds))
@@ -306,9 +305,9 @@ def get_hb_cluster_stats(
     flat = torch.as_tensor((acc_res[:, None].astype(np.int64) * n_res + don_res[None, :])
                            .reshape(-1), device=dev)
     inds = [torch.as_tensor(a, device=dev) for a in (acceptor_inds, donor_inds, donor_h_inds)]
-    _stage_end("host gather")
+    stage_end("host gather")
     pos, boxes = _to(traj.positions, traj.boxes, dev)
-    _stage_end("H2D")
+    stage_end("H2D")
     eye = torch.eye(n_res, dtype=torch.bool, device=dev)
     dist = torch.zeros(n_res, dtype=torch.int64, device=dev)
     means = []
@@ -323,9 +322,9 @@ def get_hb_cluster_stats(
         sizes = clusters_mod.cluster_sizes(adj)
         means.append(clusters_mod.mean_of_sizes(sizes))
         dist += clusters_mod.size_distribution(sizes, n_res)[:, 1:].sum(dim=0)
-    _stage_end("stats (device)")
+    stage_end("stats (device)")
     dist_np, means_np = dist.cpu().numpy(), torch.cat(means).cpu().numpy()
-    _stage_end("D2H")
+    stage_end("D2H")
     return _stats_tail(output_dir, dist_np, [means_np], seed)[0]
 
 
@@ -349,14 +348,14 @@ def get_ion_cluster_stats(
     of ions within `cutoff`, per-cluster net charge, mean effective charge
     of the clusters that hold a cation. Returns ([mean cluster size, CI],
     [mean effective charge, CI]); writes clusterDistribution.txt."""
-    dev = _device(device)
+    dev = resolve_device(device)
     top, traj = _resolve_system(top_file, traj_file, stride)
     ion_inds = np.asarray(ion_inds, int)
     n = len(ion_inds)
     q = torch.as_tensor(np.asarray(charges, np.float32), device=dev)
-    _stage_end("host gather")
+    stage_end("host gather")
     pos, boxes = _to(traj.positions[:, ion_inds, :], traj.boxes, dev)
-    _stage_end("H2D")
+    stage_end("H2D")
     dist = torch.zeros(n, dtype=torch.int64, device=dev)
     sizes_m, effs = [], []
     for fs in _frame_blocks(pos.shape[0], 3 * n * n):
@@ -371,10 +370,10 @@ def get_ion_cluster_stats(
         n_cat = torch.clamp(has_cation.sum(dim=1), min=1)
         effs.append(torch.where(has_cation, net, 0.0).sum(dim=1) / n_cat)
         dist += clusters_mod.size_distribution(sizes, n)[:, 1:].sum(dim=0)
-    _stage_end("stats (device)")
+    stage_end("stats (device)")
     dist_np = dist.cpu().numpy()
     series = [torch.cat(s).cpu().numpy() for s in (sizes_m, effs)]
-    _stage_end("D2H")
+    stage_end("D2H")
     out = _stats_tail(output_dir, dist_np, series, seed)
     return out[0], out[1]
 
@@ -394,15 +393,15 @@ def get_neighbor_stats(
     contacts between atoms of *different* molecules within `cutoff`
     (intra-molecular contacts zeroed, ref :352-353), folded per molecule.
     Returns [mean coordination, CI]; writes coordDistribution.txt."""
-    dev = _device(device)
+    dev = resolve_device(device)
     top, traj = _resolve_system(top_file, traj_file, stride)
     atom_inds = np.asarray(atom_inds, int)
     mol = torch.as_tensor(np.asarray(mol_ids, np.int64), device=dev)
     n_mol = int(np.max(mol_ids)) + 1
     n_bins = 20
-    _stage_end("host gather")
+    stage_end("host gather")
     pos, boxes = _to(traj.positions[:, atom_inds, :], traj.boxes, dev)
-    _stage_end("H2D")
+    stage_end("H2D")
     other = mol[:, None] != mol[None, :]
     hist = torch.zeros(n_bins, dtype=torch.int64, device=dev)
     means = []
@@ -415,13 +414,13 @@ def get_neighbor_stats(
             per_mol, torch.ones_like(per_mol, dtype=torch.bool), n_bins, 0.0, float(n_bins)
         ).sum(dim=0)
         means.append(per_mol.mean(dim=1))
-    _stage_end("stats (device)")
+    stage_end("stats (device)")
     hist_np, means_np = hist.cpu().numpy(), torch.cat(means).cpu().numpy()
-    _stage_end("D2H")
+    stage_end("D2H")
     np.savetxt(os.path.join(output_dir, "coordDistribution.txt"),
                np.stack([np.arange(n_bins) + 0.5, hist_np], axis=1),
                header="coordination    frequency", fmt="%.3e")
-    _stage_end("savetxt")
+    stage_end("savetxt")
     out = blocks.mean_and_ci(means_np, seed=seed)
-    _stage_end("bootstrap (host)")
+    stage_end("bootstrap (host)")
     return out

@@ -10,19 +10,21 @@ population statistics are masked reductions over the same values. Each
 driver writes the JAX package's text artifacts into `output_dir` and returns
 [mean, CI] pairs from the same 20-block bootstrap (host numpy, `seed`).
 
-`stage_times()` times the named steps of the driver calls made inside it.
+`stage_times()` (core/clock.py) times the named steps of the driver calls
+made inside it.
 """
 
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import os
-from time import monotonic, perf_counter
+from time import monotonic
 
 import numpy as np
 import torch
 
+# stage_times is re-exported: callers time the drivers as orderparams.stage_times()
+from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end, stage_times  # noqa: F401
 from waterorderlib_tpu_torch.io.streaming import iter_chunks
 from waterorderlib_tpu_torch.io.topology import Topology
 from waterorderlib_tpu_torch.io.trajectory import Trajectory, load_system, load_topology
@@ -34,54 +36,6 @@ from waterorderlib_tpu_torch.ops.cuda import qtet2
 from waterorderlib_tpu_torch.order import angles as angles_mod
 from waterorderlib_tpu_torch.stats import blocks
 from waterorderlib_tpu_torch.utils import logging as _logging_mod
-
-
-def _device(device) -> torch.device:
-    """The device to run on; a CUDA device that is not there raises (the
-    port never falls back to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' was asked for but torch finds no CUDA device; "
-            "pass device='cpu' to run the plain PyTorch version"
-        )
-    return dev
-
-
-# stage name -> ms, while a `stage_times` block is open; None otherwise
-_stage_ms: dict | None = None
-_stage_t0 = 0.0
-
-
-def _sync() -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
-@contextlib.contextmanager
-def stage_times():
-    """Time the named steps (host gather, H2D, masks, kernel stage, stats,
-    D2H, savetxt, bootstrap) of the driver calls made inside the block.
-    Yields a dict to which each step adds its wall time in ms at its end,
-    the CUDA device synchronised there. Outside a block a step's end costs
-    one comparison."""
-    global _stage_ms, _stage_t0
-    _sync()
-    _stage_ms, _stage_t0 = {}, perf_counter()
-    try:
-        yield _stage_ms
-    finally:
-        _stage_ms = None
-
-
-def _stage_end(name: str) -> None:
-    global _stage_t0
-    if _stage_ms is None:
-        return
-    _sync()
-    now = perf_counter()
-    _stage_ms[name] = _stage_ms.get(name, 0.0) + (now - _stage_t0) * 1e3
-    _stage_t0 = now
 
 
 def _log_tier(driver: str, tier: str) -> None:
@@ -181,20 +135,20 @@ def _frames_in(positions, boxes, inds, sub_inds, n_pops, row_map, device):
     """Center rows (F, Nc, 3), boxes (F, 3) and population masks of a frame
     batch on the device."""
     pos_np = positions[:, inds, :]
-    _stage_end("host gather")
+    stage_end("host gather")
     # trajectories may hold float64 frames; the kernels take float32
     pos = torch.as_tensor(pos_np, dtype=torch.float32, device=device)
     boxes_t = torch.as_tensor(boxes, dtype=torch.float32, device=device)
-    _stage_end("H2D")
+    stage_end("H2D")
     masks = _masks_tensor(sub_inds, pos.shape[0], n_pops, row_map, len(inds), device)
-    _stage_end("masks (host + H2D)")
+    stage_end("masks (host + H2D)")
     return pos, boxes_t, masks
 
 
 def _run_core(core, pos, boxes, masks):
     """`core(pos, boxes, masks)`'s (carry, stats) as numpy."""
     out = _as_numpy(core(pos, boxes, masks))
-    _stage_end("D2H")
+    stage_end("D2H")
     return out
 
 
@@ -232,9 +186,9 @@ def _tet_core(wat_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi):
     (hist (P+1, n_bins), (means (F, P+1), vars (F, P+1)))."""
     q_all = qtet2.order_param_q_certified(wat_pos, boxes, low_cut, high_cut)
     _log_tier("tet_order_calc", qtet2.last_tier)
-    _stage_end("kernel stage")
+    stage_end("kernel stage")
     out = _masked_value_pop_stats(q_all, masks, n_bins, lo, hi)
-    _stage_end("stats (device)")
+    stage_end("stats (device)")
     return out
 
 
@@ -266,7 +220,7 @@ def tet_order_calc(
     the kernel path has no row blocks. `mesh` is not ported yet.
     """
     _not_ported(mesh)
-    dev = _device(device)
+    dev = resolve_device(device)
     n_bins, lo, hi = 500, 0.0, 1.0
 
     def core(wat_pos, boxes, masks):
@@ -287,9 +241,9 @@ def tet_order_calc(
             os.path.join(output_dir, f"qDistribution_{j}.txt"),
             hist[j], n_bins, lo, hi, "qVal    frequency",
         )
-    _stage_end("savetxt")
+    stage_end("savetxt")
     out = _mean_ci_rows(avg_q, seed), _mean_ci_rows(var_q, seed)
-    _stage_end("bootstrap (host)")
+    stage_end("bootstrap (host)")
     return out
 
 
@@ -327,9 +281,9 @@ def _three_body_core(wat_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi, n
     """3-body angles + metrics for one frame batch (see _three_body_stats)."""
     ang, cnt = angles_kernel.neighbor_pair_angles_certified(wat_pos, boxes, low_cut, high_cut)
     _log_tier("three_body_calc", angles_kernel.last_tier)
-    _stage_end("kernel stage")
+    stage_end("kernel stage")
     out = _three_body_stats(ang, cnt, masks, n_bins, lo, hi, n2x)
-    _stage_end("stats (device)")
+    stage_end("stats (device)")
     return out
 
 
@@ -363,7 +317,7 @@ def three_body_calc(
     neighbors: other `max_neighbors`, and `mesh`, are not ported yet.
     """
     _not_ported(mesh, max_neighbors, angles_kernel.K, "three_body_calc")
-    dev = _device(device)
+    dev = resolve_device(device)
     lo, hi = 0.0, 180.0
     # 2-D (coordination, angle) histogram, xedges=arange(-1.5,13.5) (ref :1390)
     n2x = 14
@@ -420,9 +374,9 @@ def _three_body_outputs(
             plt.close(fig)
         except Exception as e:  # plotting is best-effort, but never silent
             _logging_mod.get_logger().warning("three_body_calc: 2-D PNG skipped (%r)", e)
-    _stage_end("savetxt")
+    stage_end("savetxt")
     out = tuple(_mean_ci_rows(np.asarray(a), seed) for a in (frac, avg, var, ent, n_wats))
-    _stage_end("bootstrap (host)")
+    stage_end("bootstrap (host)")
     return out
 
 
@@ -436,9 +390,9 @@ def _lsi_core(wat_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi):
     vars (F, P+1)))."""
     lsi_v, valid, _ = lsi_kernel.lsi_certified(wat_pos, boxes, low_cut, high_cut)
     _log_tier("lsi_calc", lsi_kernel.last_tier)
-    _stage_end("kernel stage")
+    stage_end("kernel stage")
     out = _masked_value_pop_stats(lsi_v, masks, n_bins, lo, hi, valid=valid)
-    _stage_end("stats (device)")
+    stage_end("stats (device)")
     return out
 
 
@@ -471,7 +425,7 @@ def lsi_calc(
     candidates: other `max_neighbors`, and `mesh`, are not ported yet.
     """
     _not_ported(mesh, max_neighbors, lsi_kernel.K, "lsi_calc")
-    dev = _device(device)
+    dev = resolve_device(device)
     n_bins, lo, hi = 500, 0.0, 0.3
 
     def core(wat_pos, boxes, masks):
@@ -491,9 +445,9 @@ def lsi_calc(
             os.path.join(output_dir, f"lsiDistribution_{j}.txt"),
             hist[j], n_bins, lo, hi, "lsiVal [A^2]    frequency",
         )
-    _stage_end("savetxt")
+    stage_end("savetxt")
     out = _mean_ci_rows(avg_lsi, seed), _mean_ci_rows(var_lsi, seed)
-    _stage_end("bootstrap (host)")
+    stage_end("bootstrap (host)")
     return out
 
 
@@ -506,9 +460,9 @@ def _psi_core(end_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi):
     (hist (P+1, n_bins), (means (F, P+1), vars (F, P+1)))."""
     psi, _ = psi6_kernel.psi6_certified(end_pos, boxes, low_cut, high_cut)
     _log_tier("hex_order_calc", psi6_kernel.last_tier)
-    _stage_end("kernel stage")
+    stage_end("kernel stage")
     out = _masked_value_pop_stats(psi, masks, n_bins, lo, hi)
-    _stage_end("stats (device)")
+    stage_end("stats (device)")
     return out
 
 
@@ -540,7 +494,7 @@ def hex_order_calc(
     ported yet.
     """
     _not_ported(mesh, max_neighbors, psi6_kernel.K, "hex_order_calc")
-    dev = _device(device)
+    dev = resolve_device(device)
     n_bins, lo, hi = 500, 0.0, 1.0
 
     def core(end_pos, boxes, masks):
@@ -565,9 +519,9 @@ def hex_order_calc(
             os.path.join(output_dir, f"psiDistribution_{j}.txt"),
             hist[j], n_bins, lo, hi, "psiVal    frequency",
         )
-    _stage_end("savetxt")
+    stage_end("savetxt")
     out = _mean_ci_rows(avg_psi, seed), _mean_ci_rows(var_psi, seed)
-    _stage_end("bootstrap (host)")
+    stage_end("bootstrap (host)")
     return out
 
 

@@ -70,6 +70,15 @@ def neighbor_mask(
     return _shell_mask_sq(pair_dist_sq(sub, pos, box), low_cut, high_cut)
 
 
+def signed_sq_metric(sub: torch.Tensor, pos: torch.Tensor, box: torch.Tensor,
+                     high_cut) -> torch.Tensor:
+    """distSq - highCut^2 metric matrix (Ns, N), a signed-distance field
+    for isosurfaces (`nearNeighbors3`, waterlib.f90:796-826). high_cut:
+    scalar or (N,)."""
+    hc = torch.as_tensor(high_cut, dtype=sub.dtype, device=sub.device)
+    return pair_dist_sq(sub, pos, box) - hc * hc
+
+
 def _blocks(sub: torch.Tensor, row_block: int):
     block = min(row_block, max(1, sub.shape[0]))
     padded, ns = _pad_rows(sub, block)
