@@ -69,12 +69,30 @@ Phases (each raises on failure; nothing is caught):
    times, with bounds whose expf and division costs are read from the SASS
    of a probe; fixture B, 32,768
    waters, must take a grid tier and equal the points kernel on three
-   planes; a warm `density_grid` under the stage clock.
+   planes; a warm `density_grid` under the stage clock;
+8. the SASA slice: `sasa_per_atom` on bench.py's 4096-atom lattice with
+   1000 points and radii 1.5 + 1.4 A, with the box and with box=None, must
+   take the pruned tier with one `sasa_topk` launch and no plain call; both
+   occlusion kernels equal their plain versions and the brute tier the
+   pruned one, exactly; 130 atoms around atom 0 fail the certificate and
+   the brute tier serves (one launch of each kernel); a coincident pair is
+   left out by the pruned tier and counted by the brute tier; times,
+   bounds, a warm `sasa_per_atom` under the stage clock; `sasa_calc` and
+   `sphere_volumes` on the card equal the port's CPU run;
+9. the earlier q kernels at 4096 waters: `order_param_q_dense` (one
+   `qtet_window_hist` launch; q equal to the brute `q_window` form, the
+   fused histogram to its plain version), the dense q over 1024 frames,
+   and the v1 slab q (per-frame z-sort, its per-frame window starts against
+   the plain version on 8 frames; frame-0 sort) over 1024 frames, equal to
+   the brute q wherever ok and covered but at exact 4th/5th-neighbor ties.
+Near the end, a line says whether scipy imports on this machine, and one
+sums up ptxas's registers and spills.
 
 The last line is one JSON object, {"ok": true, "device": {...}}; before it
 come a JSON line of the kernels (launches in their slice, largest error
-against the plain version, times per frame (the Willard kernels: per call
-on fixture A) of the kernel, the plain version and the bound, "bound_by";
+against the plain version (for the occlusion kernels a count of points),
+times per frame (the Willard and SASA kernels and `qtet_window_hist`: per
+call) of the kernel, the plain version and the bound, "bound_by";
 "library_ms" is null: no single PyTorch call computes these functions), and
 the card's name and power limit. Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -121,7 +139,8 @@ PEAK_HBM = 3.35e12  # bytes/s
 # candidate of its wide pass for the raw distance (RAW_FLOPS)
 PAIR_FLOPS = 14
 RAW_FLOPS = 8
-EPILOGUE_FLOPS = {"qtet_window": 4 * 19 + 6 * 10, "angles_window": 16 * 19 + 120 * 26,
+EPILOGUE_FLOPS = {"qtet_window": 4 * 19 + 6 * 10, "qtet_window_hist": 4 * 19 + 6 * 10 + 3,
+                  "angles_window": 16 * 19 + 120 * 26,
                   "psi6_window": 24 * 19 + 276 * 24, "lsi_window": 24 * 9 + 23 * 6 + 4,
                   "lsi_split_window": 13 * 1 + 12 * 6 + 4}
 SOURCES = {"qtet_window": "waterorderlib_tpu_torch/ops/cuda/csrc/qtet_window.cu",
@@ -132,8 +151,12 @@ SOURCES = {"qtet_window": "waterorderlib_tpu_torch/ops/cuda/csrc/qtet_window.cu"
            "hbond_dense": "waterorderlib_tpu_torch/ops/cuda/csrc/hbond.cu",
            "hbond_slab": "waterorderlib_tpu_torch/ops/cuda/csrc/hbond.cu",
            "willard_grid": "waterorderlib_tpu_torch/ops/cuda/csrc/willard.cu",
-           "willard_points": "waterorderlib_tpu_torch/ops/cuda/csrc/willard.cu"}
-REPLACES = {"qtet_window": "waterorderlib_tpu/ops/pallas/qtet2.py:111",
+           "willard_points": "waterorderlib_tpu_torch/ops/cuda/csrc/willard.cu",
+           "qtet_window_hist": "waterorderlib_tpu_torch/ops/cuda/csrc/qtet_window.cu",
+           "sasa_topk": "waterorderlib_tpu_torch/ops/cuda/csrc/sasa.cu",
+           "sasa_brute": "waterorderlib_tpu_torch/ops/cuda/csrc/sasa.cu"}
+REPLACES = {"qtet_window": "waterorderlib_tpu/ops/pallas/qtet2.py:111, qtet_kernel.py:286, "
+                           "qtet_sorted.py:192, :315",
             "angles_window": "waterorderlib_tpu/ops/pallas/angles_kernel.py:159",
             "psi6_window": "waterorderlib_tpu/ops/pallas/psi6_kernel.py:163",
             "lsi_window": "waterorderlib_tpu/ops/pallas/lsi_kernel.py:177",
@@ -141,7 +164,10 @@ REPLACES = {"qtet_window": "waterorderlib_tpu/ops/pallas/qtet2.py:111",
             "hbond_dense": "waterorderlib_tpu/ops/pallas/hbond_kernel.py:153",
             "hbond_slab": "waterorderlib_tpu/ops/pallas/hbond_slab.py:193",
             "willard_grid": "waterorderlib_tpu/ops/pallas/willard_grid.py:358, :375",
-            "willard_points": "waterorderlib_tpu/ops/pallas/willard_kernel.py:102"}
+            "willard_points": "waterorderlib_tpu/ops/pallas/willard_kernel.py:102",
+            "qtet_window_hist": "waterorderlib_tpu/ops/pallas/qtet_kernel.py:159",
+            "sasa_topk": "waterorderlib_tpu/ops/pallas/sasa_kernel.py:81",
+            "sasa_brute": "waterorderlib_tpu/ops/pallas/sasa_kernel.py:81"}
 # the H-bond slice: hb_calc's default cuts; a solute with one O acceptor,
 # one O-H donor, one N acceptor and two N-H donors, so that each of the nine
 # acceptor x donor sets is non-empty; the slab tier's size
@@ -183,6 +209,19 @@ WC_DOT, WC_DOT_SHARE = 0.98, 0.999  # unit normals: dot > 0.98 on >= 99.9% of po
 # (negate, divide, x peak, g - shift, add, 3 x multiply-add)
 WG_ROW_FLOPS, WG_ROW_NEAR_FLOPS, WG_STRIP_FLOPS, WG_INSIDE_FLOPS = 10, 2, 6, 12
 WP_PAIR_FLOPS, WP_INSIDE_FLOPS = 21, 10
+# the SASA slice: bench.py's SASA size (4096 atoms of the jittered lattice,
+# 1000 points, radii vdW 1.5 + probe 1.4), K = 128 occluder slots; the
+# certificate's failure: 130 atoms within 2 max r of atom 0
+SASA_VDW, SASA_PROBE, SASA_POINTS, SASA_K = 1.5, 1.4, 1000, 128
+SASA_CLUSTER = 130
+# float32 operations of the occlusion kernel: per sphere point 6 (3 fmas);
+# per (point, occluder) test 8 (3 subtracts, a product, 2 fmas); per
+# (atom, occluder) of the brute loader 19 (3 x subtract, x 1/L, rint, x L,
+# subtract, add; r_j^2). Tests are counted from this run's data: each point
+# against the occluders in order up to its first occluding one, a visible
+# point against every occluder that can occlude (`_sasa_tests`)
+SASA_POINT_FLOPS, SASA_TEST_FLOPS, SASA_LOAD_FLOPS = 6, 8, 19
+N_FRAMES_LEGACY_PLAIN = 8
 
 
 def _check(cond: bool, what: str) -> None:
@@ -904,6 +943,371 @@ def _willard_phases(card, kernels, errs, launches, times, sass):
     _stages("density_grid", lambda d: grids.density_grid(heavy, wat, box_np, device="cuda"))
 
 
+def _env_line():
+    """One line: does scipy import here (the Voronoi slice's host close
+    needs it)? Not a phase that can fail."""
+    try:
+        import scipy
+    except ImportError as e:
+        print(f"[env] scipy: not importable ({type(e).__name__}: {e})", flush=True)
+    else:
+        print(f"[env] scipy: imports, version {scipy.__version__}", flush=True)
+
+
+def _ptxas_summary(logs):
+    """One line: each source's kernels' registers and spill-store bytes, as
+    ptxas reported them in this run's build (the early [ptxas] lines fall
+    out of a tail of the output)."""
+    import re
+
+    parts = []
+    for name, log in logs.items():
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+        parts.append(f"{name} {'/'.join(regs)} registers, spill stores {'/'.join(spills)} bytes")
+    return "[ptxas] " + "; ".join(parts)
+
+
+def _sasa_tests(pos, rad, pts, box, slots=None):
+    """(point, occluder) tests the occlusion loop needs on these inputs:
+    each point against the occluders in order up to its first occluding
+    one, a visible point against every occluder that can occlude. slots:
+    the pruned tier's (occ, occ_rsq, valid); None: the brute tier (all
+    atoms but the point's own). float32 without the fmas: a count."""
+    import math
+    import torch
+    from waterorderlib_tpu_torch.core import pbc
+
+    n, p = pos.shape[0], pts.shape[0]
+    m = n if slots is None else slots[0].shape[1]
+    idx = torch.arange(n, device=pos.device)
+    step = max(1, (1 << 24) // (p * m))
+    total = 0
+    for s in range(0, n, step):
+        c, r = pos[s : s + step], rad[s : s + step]
+        if slots is None:
+            occ = c[:, None] + pbc.minimum_image(pos[None] - c[:, None], box)
+            rsq = torch.where(idx[s : s + step, None] == idx[None], -math.inf, (rad * rad)[None])
+        else:
+            occ = slots[0][s : s + step]
+            rsq = torch.where(slots[2][s : s + step], slots[1][s : s + step], -math.inf)
+        d = (c[:, None] + r[:, None, None] * pts[None])[:, :, None] - occ[:, None]
+        hit = (d * d).sum(-1) < rsq[:, None]  # (B, P, M)
+        cum = torch.cumsum(torch.isfinite(rsq).int(), dim=-1)  # (B, M)
+        first = hit.int().argmax(dim=-1)  # (B, P)
+        tests = torch.where(hit.any(dim=-1), cum.gather(1, first), cum[:, -1:].expand_as(first))
+        total += int(tests.sum())
+    return total
+
+
+def _sasa_bound_ms(n, p, tests, k=None):
+    """Least time of one occlusion launch: its float32 operations (points,
+    tests, and the brute loader's reimaging) over the peak rate, or its
+    bytes (centers, radii, points, box or slots read once, n_vis written
+    once) over the memory rate. k: the pruned tier's slots; None: brute."""
+    ops = n * p * SASA_POINT_FLOPS + tests * SASA_TEST_FLOPS
+    in_bytes = 16 * n + 12 * p + 4 * n
+    if k is None:
+        ops += n * n * SASA_LOAD_FLOPS
+        in_bytes += 12
+    else:
+        in_bytes += 17 * n * k  # occ, occ_rsq, valid
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = in_bytes / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _sasa_phases(card, kernels, errs, launches, times):
+    """The SASA slice: sasa_per_atom on bench.py's 4096-atom lattice with
+    1000 points, with the box and with box=None (the pruned tier, one
+    sasa_topk launch, no plain call); both kernels against their plain
+    versions and the brute tier against the pruned one, exactly; a cluster
+    of 130 atoms around atom 0 fails the certificate (the brute tier, one
+    launch of each kernel); a coincident pair (left out by the pruned tier,
+    counted by the brute tier); times, bounds and a warm sasa_per_atom on
+    the stage clock; sasa_calc and sphere_volumes on the card against the
+    port's own CPU run."""
+    import numpy as np
+    import torch
+    from waterorderlib_tpu_torch.core.geometry import sphere_points
+    from waterorderlib_tpu_torch.io.synthetic import make_water_box
+    from waterorderlib_tpu_torch.ops import pairs
+    from waterorderlib_tpu_torch.ops.cuda import sasa as occl
+    from waterorderlib_tpu_torch.surface import sasa
+
+    dev = torch.device("cuda")
+    tk, tp = occl.sasa_topk, occl.sasa_topk_plain
+    bk, bp = occl.sasa_brute, occl.sasa_brute_plain
+    kernels["sasa_topk"] = (tk, tp)
+    kernels["sasa_brute"] = (bk, bp)
+    pos_np = _lattice_traj(N_WATERS, 1, seed=0)[0][0]
+    box_np = np.full(3, (N_WATERS / 0.033456) ** (1.0 / 3.0), np.float32)
+    vdw = np.full(N_WATERS, SASA_VDW, np.float32)
+    pts = torch.as_tensor(sphere_points(SASA_POINTS), dtype=torch.float32, device=dev)
+
+    def drive(label, p_np, v_np, box_arg, want_tier, want_launches):
+        """sasa_per_atom with every count at 0; returns (areas, exposed)."""
+        torch.cuda.synchronize()
+        for k, p in kernels.values():
+            k.launches, p.calls = 0, 0
+        t0 = time.perf_counter()
+        areas, exposed = sasa.sasa_per_atom(p_np, v_np, box=box_arg, n_points=SASA_POINTS,
+                                             device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = (tk.launches, bk.launches)
+        plain = sum(p.calls for _, p in kernels.values())
+        print(f"[slice] sasa_per_atom {label}: tier={sasa.last_tier} launches topk/brute={ran} "
+              f"plain calls={plain} wall={wall:.3f} s; total area {float(areas.sum()):.2f} A^2, "
+              f"{int(exposed.sum())} of {len(p_np)} atoms exposed", flush=True)
+        _check(sasa.last_tier == want_tier, f"sasa_per_atom {label} took {sasa.last_tier}")
+        _check(ran == want_launches, f"sasa_per_atom {label} launched {ran}, not {want_launches}")
+        _check(plain == 0, f"sasa_per_atom {label} called a plain version")
+        _check(bool(torch.isfinite(areas).all()) and tuple(areas.shape) == (len(p_np),),
+               f"sasa_per_atom {label}: areas not finite or of the wrong shape")
+        return areas, exposed
+
+    def cmp_counts(label, kern, plain, args):
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        print(f"[kernel] {kern.__name__} {label}: max|d n_vis|={err} (a count), "
+              f"{int((got != want).sum())} atoms differ", flush=True)
+        _check(err == 0, f"{kern.__name__} {label}: n_vis differs from the plain version")
+        errs[kern.__name__].append(float(err))
+        return got
+
+    for label, box_arg in (("with the box", box_np), ("box=None", None)):
+        areas, exposed = drive(f"{N_WATERS} atoms x {SASA_POINTS} points, {label}", pos_np, vdw,
+                               box_arg, "topk", (1, 0))
+        launches["sasa_topk"] = 1
+        pos = torch.as_tensor(pos_np, device=dev)
+        rad = torch.as_tensor(vdw, device=dev) + SASA_PROBE
+        box = torch.as_tensor(box_np if box_arg is not None else np.full(3, -1.0, np.float32),
+                              device=dev)
+        nl = pairs.topk_neighbors(pos, pos, box, k=SASA_K, low_cut=0.0,
+                                  high_cut=2.0 * float(rad.max()), row_block=256)
+        ok = bool((nl.count <= SASA_K).all())
+        slots = sasa.occluder_slots(pos, rad, box, nl)
+        t_args, b_args = (pos, rad, pts, *slots), (pos, rad, pts, box)
+        n_top = cmp_counts(f"{label} (ok={ok}, at most {int(nl.count.max())} candidates)", tk, tp,
+                           t_args)
+        n_brute = cmp_counts(label, bk, bp, b_args)
+        _check(ok, f"{label}: the certificate failed on the lattice")
+        _check(torch.equal(n_top, n_brute), f"{label}: the brute tier differs from the pruned one")
+        _check(torch.equal(areas, sasa._areas(rad, n_top, SASA_POINTS))
+               and torch.equal(exposed, n_top >= 10),
+               f"{label}: sasa_per_atom differs from the kernel's counts")
+        print(f"[kernel] {label}: brute tier equals pruned tier on all {N_WATERS} atoms; "
+              f"n_vis {int(n_top.min())}..{int(n_top.max())}", flush=True)
+        tests_t, tests_b = _sasa_tests(pos, rad, pts, box, slots), _sasa_tests(pos, rad, pts, box)
+        ms_t, ms_b = _ms(tk, t_args, 20), _ms(bk, b_args, 5)
+        plain_t, plain_b = _ms(tp, t_args, 1), _ms(bp, b_args, 1)
+        bound_t = _sasa_bound_ms(N_WATERS, SASA_POINTS, tests_t, SASA_K)
+        bound_b = _sasa_bound_ms(N_WATERS, SASA_POINTS, tests_b)
+        if box_arg is not None:
+            times["sasa_topk"] = (ms_t, plain_t, *bound_t)
+            times["sasa_brute"] = (ms_b, plain_b, *bound_b)
+        print(f"[time] sasa_topk {label} ({N_WATERS} atoms x {SASA_POINTS} points, K={SASA_K}, "
+              f"{tests_t} tests): kernel {ms_t:.5f} ms, plain {plain_t:.3f} ms, bound "
+              f"{bound_t[0]:.5f} ms ({bound_t[1]}); {card}", flush=True)
+        print(f"[time] sasa_brute {label} ({N_WATERS} atoms x {SASA_POINTS} points x {N_WATERS} "
+              f"occluders, {tests_b} tests): kernel {ms_b:.5f} ms, plain {plain_b:.3f} ms, bound "
+              f"{bound_b[0]:.5f} ms ({bound_b[1]}); {card}", flush=True)
+        del nl, slots, t_args, b_args
+
+    # the certificate fails: 130 atoms within 2 max r of atom 0
+    rs = np.random.RandomState(6)
+    dirs = rs.normal(size=(SASA_CLUSTER, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    cluster = pos_np[0] + (0.5 + 2.0 * rs.rand(SASA_CLUSTER, 1)) * dirs
+    cl_pos = np.concatenate([pos_np, cluster]).astype(np.float32)
+    cl_vdw = np.full(len(cl_pos), SASA_VDW, np.float32)
+    areas, exposed = drive(f"{len(cl_pos)} atoms (a {SASA_CLUSTER}-atom cluster at atom 0)",
+                           cl_pos, cl_vdw, box_np, "brute", (1, 1))
+    launches["sasa_brute"] = 1
+    cp = torch.as_tensor(cl_pos, device=dev)
+    crad = torch.as_tensor(cl_vdw, device=dev) + SASA_PROBE
+    cbox = torch.as_tensor(box_np, device=dev)
+    want_a, want_e = sasa.sphere_surface_areas(cp, crad, pts, cbox)
+    n_plain = cmp_counts("cluster", bk, bp, (cp, crad, pts, cbox))
+    _check(torch.equal(areas, want_a) and torch.equal(exposed, want_e)
+           and torch.equal(areas, sasa._areas(crad, n_plain, SASA_POINTS)),
+           "sasa_per_atom on the cluster differs from the brute tier")
+
+    # a coincident pair: an atom of radius 3.5 on atom 0
+    co_pos = torch.as_tensor(np.concatenate([pos_np, pos_np[:1]]), device=dev)
+    co_rad = torch.cat([torch.full((N_WATERS,), SASA_VDW, device=dev) + SASA_PROBE,
+                        torch.tensor([3.5], device=dev)])
+    co_box = torch.as_tensor(box_np, device=dev)
+    a_top, _, ok = sasa.sphere_surface_areas_topk(co_pos, co_rad, pts, co_box)
+    a_brute, _ = sasa.sphere_surface_areas(co_pos, co_rad, pts, co_box)
+    rest = torch.arange(1, N_WATERS, device=dev)
+    print(f"[kernel] coincident pair at atom 0: pruned tier area {float(a_top[0]):.4f} A^2, brute "
+          f"tier {float(a_brute[0]):.4f} A^2; the other atoms equal: "
+          f"{bool(torch.equal(a_top[rest], a_brute[rest]))}", flush=True)
+    _check(bool(ok) and float(a_top[0]) > 0.0 and float(a_brute[0]) == 0.0
+           and torch.equal(a_top[rest], a_brute[rest]),
+           "coincident pair: the pruned tier must leave it out and the brute tier count it")
+    del cp, crad, co_pos, co_rad, want_a, want_e
+
+    _stages("sasa_per_atom", lambda d: sasa.sasa_per_atom(pos_np, vdw, box=box_np,
+                                                          n_points=SASA_POINTS, device="cuda"))
+    _check(sasa.last_tier == "topk", "warm sasa_per_atom left the pruned tier")
+
+    # sasa_calc and sphere_volumes: the card against the port's CPU run
+    top, traj = make_water_box(64, n_frames=1, seed=5, solute_elements=["C", "O"])
+    sp = traj.positions[0].astype(np.float32)
+    srad = (1.2 + 0.6 * np.random.RandomState(2).rand(len(sp))).astype(np.float32)
+    sbox = traj.boxes[0].astype(np.float32)
+    got = sasa.sasa_calc(sp, sbox, srad, device="cuda")
+    want = sasa.sasa_calc(sp, sbox, srad, device="cpu")
+    err_c = max(float((g.cpu() - w).abs().max()) for g, w in ((got[0], want[0]), (got[2], want[2])))
+    same_acc = torch.equal(got[1].cpu(), want[1])
+    v_got = sasa.sphere_volumes(sp, srad, 0.5, 64, device="cuda").cpu()
+    v_want = sasa.sphere_volumes(sp, srad, 0.5, 64, device="cpu")
+    err_v = float(((v_got - v_want).abs() / v_want.abs().clamp(min=1e-30)).max())
+    print(f"[slice] sasa_calc ({len(sp)} atoms x 100 points) on the card vs the CPU: accessible "
+          f"equal {same_acc}, max|d| points and sasa {err_c:.3e}; sphere_volumes (64^3 voxels): "
+          f"max relative |d| {err_v:.3e}, total {float(v_got.sum()):.3f} A^3", flush=True)
+    _check(same_acc and err_c <= 1e-6 * float(want[2].abs().max()) and err_v <= 1e-6,
+           "sasa_calc or sphere_volumes differ between the card and the CPU")
+
+
+def _q_ties(pos, boxes, frames, rows):
+    """(M,) bool: the 4th and 5th nearest neighbors of atom rows[m] in frame
+    frames[m] (shell (0, 10 A]) lie at exactly equal squared distances in
+    the q kernel's arithmetic (wrapped coordinates, two-select minimum
+    image, unfused sums), so which one q takes depends on column order."""
+    import math
+    import torch
+
+    if len(frames) == 0:
+        return torch.zeros(0, dtype=torch.bool, device=pos.device)
+    L = boxes[frames][:, None, :]
+    wrapped = torch.remainder(pos[frames], L)  # (M, N, 3)
+    d = wrapped - wrapped[torch.arange(len(frames), device=pos.device), rows][:, None, :]
+    d = torch.where(d > L * 0.5, d - L, d)
+    d = torch.where(d < -L * 0.5, d + L, d)
+    dsq = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    dsq = torch.where((dsq > 0.0) & (dsq <= 100.0), dsq, math.inf)
+    top = torch.sort(dsq, dim=1).values[:, :5]
+    return top[:, 3] == top[:, 4]
+
+
+def _qtet_legacy_phases(card, kernels, errs, launches, times):
+    """The earlier q kernels at 4096 waters: the dense q with its fused
+    histogram (one qtet_window_hist launch; q equal to the brute q_window
+    form, the histogram to its plain version), the dense q over 1024 frames,
+    and the v1 slab q (per-frame z-sort: per-frame window starts, against
+    the plain version on 8 frames; frame-0 sort) over 1024 frames, equal to
+    the brute q wherever ok and covered."""
+    import torch
+    from waterorderlib_tpu_torch.ops.cuda import qtet2, qtet_kernel, qtet_sorted, slab
+
+    dev = torch.device("cuda")
+    hk, hp = qtet2.q_window_hist, qtet2.q_window_hist_plain
+    q_k, q_p = qtet2.q_window, qtet2.q_window_plain
+    kernels["qtet_window_hist"] = (hk, hp)
+    pos_np, boxes_np = _lattice_traj(N_WATERS, N_FRAMES_SLICE, seed=1)
+    pos, boxes = torch.from_numpy(pos_np).to(dev), torch.from_numpy(boxes_np).to(dev)
+
+    torch.cuda.synchronize()
+    for k, p in kernels.values():
+        k.launches, p.calls = 0, 0
+    q, hist = qtet_kernel.order_param_q_dense(pos[0], boxes[0])
+    torch.cuda.synchronize()
+    ran, plain = (hk.launches, q_k.launches), sum(p.calls for _, p in kernels.values())
+    launches["qtet_window_hist"] = hk.launches
+    q_brute = qtet2.order_param_q_frames(pos[:1], boxes[:1], row_tile=128)[0]
+    cols = slab.brute_cols(pos[:1], boxes[:1])
+    args = (cols, cols, torch.zeros(N_WATERS // 128, dtype=torch.int32, device=dev), boxes[:1],
+            N_WATERS, 128, 0.0, 100.0, 100.0)
+    q_pl, _, h_pl = hp(*args)
+    err_h = float((q - q_pl[0]).abs().max())
+    print(f"[qtet-legacy] order_param_q_dense {N_WATERS} waters: launches hist/q={ran}, plain "
+          f"calls={plain}; q equals the brute q_window form: {bool(torch.equal(q, q_brute))}; "
+          f"hist equals the plain version's: {bool(torch.equal(hist, h_pl))} "
+          f"({int(hist.sum())} rows in [0, 1]); max|dq| vs plain {err_h:.3e}", flush=True)
+    _check(ran == (1, 0) and plain == 0, f"order_param_q_dense launched {ran}, plain {plain}")
+    _check(torch.equal(q, q_brute), "the hist kernel's q differs from q_window's brute form")
+    _check(torch.equal(hist, h_pl), "the fused histogram differs from its plain version")
+    _check(err_h <= Q_TOL, f"dense q: max|dq| {err_h} > {Q_TOL}")
+    errs["qtet_window_hist"].append(err_h)
+    ms = _ms(hk, args, 20)
+    plain_ms = _ms(hp, args, 1)
+    bound, bound_by = _bound_ms("qtet_window_hist", args, 5)
+    times["qtet_window_hist"] = (ms, plain_ms, bound, bound_by)
+    print(f"[time] qtet_window_hist, brute form, 1 frame ({N_WATERS} rows, w={N_WATERS}): kernel "
+          f"{ms:.5f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by}); {card}",
+          flush=True)
+
+    q_f, hist_f = qtet_kernel.order_param_q_dense_frames(pos, boxes)
+    q_ref = qtet2.order_param_q_frames(pos, boxes, row_tile=128)
+    _check(torch.equal(q_f, q_ref) and int(hist_f.sum()) == int(((q_f >= 0) & (q_f <= 1)).sum()),
+           "order_param_q_dense_frames differs from order_param_q_frames")
+    print(f"[qtet-legacy] order_param_q_dense_frames {N_WATERS} waters x {N_FRAMES_SLICE} frames: "
+          f"q equals order_param_q_frames; hist of {int(hist_f.sum())} values", flush=True)
+
+    # the q kernel at rows 5-7's own launches (1024 frames): the brute form,
+    # the per-frame slab form (per-frame window starts) and the frame-0 slab
+    # form; each against its plain version on the first 8 frames
+    nf, n = N_FRAMES_LEGACY_PLAIN, N_WATERS
+    cols_all = slab.brute_cols(pos, boxes)
+    pf = slab.slab_prep_frames(pos, boxes, 4.5, 1280, 128, 512)
+    pt = slab.slab_prep_traj(pos, boxes, ((4.5, 1536),), 128, 512)
+    forms = (
+        ("qtet_kernel.py:286", "brute form", (cols_all, cols_all, args[2], boxes, n, 128, 0.0,
+                                               100.0, 100.0)),
+        ("qtet_sorted.py:192", f"per-frame slab form (w={pf.w})",
+         (pf.ext_t[:, :, 512 : 512 + n], pf.ext_t, pf.starts, boxes, pf.w, 128, 0.0, 100.0,
+          4.5 * 4.5)),
+        ("qtet_sorted.py:315", f"frame-0 slab form (w={pt.ws[0]})",
+         (pt.ext_t[:, :, 512 : 512 + n], pt.ext_t, pt.starts[0], boxes, pt.ws[0], 128, 0.0, 100.0,
+          4.5 * 4.5)),
+    )
+    for site, label, full in forms:
+        starts = full[2]
+        sub = (full[0][:nf], full[1][:nf], starts[:nf] if starts.dim() == 2 else starts,
+               full[3][:nf], *full[4:])
+        errs["qtet_window"].append(_cmp(f"{label}, frames 0-{nf - 1}", q_k, q_p, sub, (Q_TOL, 0)))
+        ms = _ms(q_k, full, 3) / N_FRAMES_SLICE
+        plain_ms = _ms(q_p, sub, 1) / nf
+        shared = (*full[:2], starts[0] if starts.dim() == 2 else starts, *full[3:])
+        bound, bound_by = _bound_ms("qtet_window", shared, 5)
+        print(f"[time] qtet_window for {site}, {label} ({n} rows, F={N_FRAMES_SLICE}): kernel "
+              f"{ms:.5f} ms/frame, plain {plain_ms:.3f} ms/frame (F={nf}), bound "
+              f"{bound / N_FRAMES_SLICE:.5f} ms/frame ({bound_by}); {card}", flush=True)
+    del cols_all, pf, pt, forms
+    for name, fn in (("order_param_q_sorted", qtet_sorted.order_param_q_sorted),
+                     ("order_param_q_sorted_traj", qtet_sorted.order_param_q_sorted_traj)):
+        before = q_k.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_s, ok, cov = fn(pos, boxes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        good = ok & cov[:, None]
+        apart = good & ((q_s - q_ref).abs() > Q_TOL)
+        f_idx, r_idx = torch.nonzero(apart, as_tuple=True)
+        ties = _q_ties(pos, boxes, f_idx, r_idx)
+        err = float((q_s[good & ~apart] - q_ref[good & ~apart]).abs().max())
+        tie_rows = list(zip(f_idx.tolist(), r_idx.tolist(), q_s[apart].tolist(),
+                            q_ref[apart].tolist()))
+        print(f"[qtet-legacy] {name} {N_WATERS} waters x {N_FRAMES_SLICE} frames: slab tier, "
+              f"q_window launches={q_k.launches - before}, covered on {int(cov.sum())} frames, ok "
+              f"on {float(ok.float().mean()):.6f} of rows; max|dq| vs brute where ok and covered "
+              f"{err:.3e}, but for {len(f_idx)} rows (frame, atom, slab q, brute q) "
+              f"{tie_rows[:8]} whose 4th and 5th neighbors lie at "
+              f"exactly equal distances ({int(ties.sum())} of them): the tie goes to the lower "
+              f"column, z-sorted here and in atom order in the brute form; {wall:.3f} s",
+              flush=True)
+        _check(bool(cov.all()) and float(good.float().mean()) > 0.999 and err <= Q_TOL
+               and bool(ties.all()) and q_k.launches - before == 1,
+               f"{name}: not certified, or differs from brute q other than at an exact tie")
+        errs["qtet_window"].append(err)
+
+
 def main() -> int:
     import torch
 
@@ -937,9 +1341,9 @@ def main() -> int:
           flush=True)
     t0 = time.perf_counter()
     sass = _sass_start()
-    build.build_all(["qtet_window", "nbr_window", "lsi_window", "hbond", "willard"])
-    print(f"[build] qtet_window.cu, nbr_window.cu, lsi_window.cu, hbond.cu and willard.cu built in "
-          f"parallel in {time.perf_counter() - t0:.2f} s", flush=True)
+    build.build_all(["qtet_window", "nbr_window", "lsi_window", "hbond", "willard", "sasa"])
+    print(f"[build] qtet_window.cu, nbr_window.cu, lsi_window.cu, hbond.cu, willard.cu and sasa.cu "
+          f"built in parallel in {time.perf_counter() - t0:.2f} s", flush=True)
     sass_ops = _sass_ops(*sass)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
@@ -1509,11 +1913,17 @@ def main() -> int:
     # 7. the Willard-Chandler interface slice
     _willard_phases(card, kernels, errs, launches, times, sass_ops)
 
+    # 8. the SASA slice; 9. the earlier q kernels
+    _sasa_phases(card, kernels, errs, launches, times)
+    _qtet_legacy_phases(card, kernels, errs, launches, times)
+
     # no jax, and nothing of the JAX package
     _check("jax" not in sys.modules, "jax was imported")
     shared = sorted(m for m in sys.modules
                     if m == "waterorderlib_tpu" or m.startswith("waterorderlib_tpu."))
     _check(not shared, f"modules of the JAX package were imported: {shared}")
+    _env_line()
+    print(_ptxas_summary(build.BUILD_LOG), flush=True)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{

@@ -107,9 +107,10 @@ def test_cli_tet_on_cpu(tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """Importing the port and running its drivers (the four order
-    parameters, hb_calc, get_bound_wrap, density_grid, sasa_grid and
-    density_voxel) leaves jax, and every module of the JAX package, out of
-    sys.modules."""
+    parameters, hb_calc, get_bound_wrap, density_grid, sasa_grid,
+    density_voxel, sasa_per_atom, sasa_calc and sphere_volumes) and the
+    earlier q kernels (dense, frames, v1 slab) leaves jax, and every module
+    of the JAX package, out of sys.modules."""
     import __graft_entry__ as g
 
     code = (
@@ -130,6 +131,19 @@ def test_port_imports_no_jax(tmp_path):
         "assert len(grids.density_grid(sp[s], p[w], b, level=0.03, n_bins=17, device='cpu')[1])\n"
         "assert len(grids.sasa_grid(sp[s], b, [2.0] * len(s), n_bins=12, device='cpu')[1])\n"
         "assert grids.density_voxel(sp[s], p[w], b, device='cpu').shape == (10, 10, 10)\n"
+        "import torch\n"
+        "from waterorderlib_tpu_torch.core import geometry\n"
+        "from waterorderlib_tpu_torch.surface import sasa\n"
+        "from waterorderlib_tpu_torch.ops.cuda import qtet_kernel, qtet_sorted\n"
+        "assert sasa.sasa_per_atom(p[w], [1.5] * len(w), b, n_points=60, device='cpu')[0].shape == (64,)\n"
+        "assert sasa.sasa_calc(p[w], b, [1.5] * len(w), n_points=20, device='cpu')[2].shape == (64,)\n"
+        "assert sasa.sphere_volumes(p[w], [1.5] * len(w), 0.5, 16, device='cpu').shape == (64,)\n"
+        "assert geometry.sphere_points(10).shape == (10, 3)\n"
+        "tp, tb = torch.as_tensor(traj.positions[:, w]), torch.as_tensor(traj.boxes)\n"
+        "assert qtet_kernel.order_param_q_dense(tp[0], tb[0])[1].shape == (500,)\n"
+        "assert qtet_kernel.order_param_q_dense_frames(tp, tb)[0].shape == (2, 64)\n"
+        "assert qtet_sorted.order_param_q_sorted(tp, tb, pad=64)[0].shape == (2, 64)\n"
+        "assert qtet_sorted.order_param_q_sorted_traj(tp, tb, pad=64)[0].shape == (2, 64)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'waterorderlib_tpu' or m.startswith('waterorderlib_tpu.')]\n"

@@ -6,7 +6,9 @@ by either holds the same arrays (pass them as numpy); `slab_prep_from_jax`
 turns the JAX package's slab prep arrays (of one window spec or several)
 into the port's `SlabPrep`, so the port's kernel contracts can be fed the
 JAX prep and kernel parity checked apart from prep parity, and
-`coords_from_jax` carries a coordinate array such as LSI's raw layout.
+`coords_from_jax` carries a coordinate array such as LSI's raw layout;
+`neighbor_list_from_jax` carries a fixed-K neighbor list, so the port's
+occlusion kernel can be fed the JAX package's occluder slots.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from waterorderlib_tpu_torch.ops.cuda.slab import SlabPrep
+from waterorderlib_tpu_torch.ops.pairs import NeighborList
 
 
 def slab_prep_from_jax(ext_t, starts_div128, covered, order0, ws, n_tiles, device) -> SlabPrep:
@@ -41,3 +44,15 @@ def coords_from_jax(arr, device) -> torch.Tensor:
     """A float32 coordinate array (e.g. (F, 3, n_ext) ext_t or raw_t) as a
     tensor of its own (a copy: arrays handed over from jax are read-only)."""
     return torch.tensor(np.ascontiguousarray(arr, np.float32), device=device)
+
+
+def neighbor_list_from_jax(nl, device) -> NeighborList:
+    """The port's NeighborList from the JAX package's `pairs.NeighborList`
+    (dist, idx, valid, count), each field copied as a tensor of the port's
+    dtype: float32 distances, int32 indices and counts, bool flags."""
+    return NeighborList(
+        dist=torch.tensor(np.asarray(nl.dist, np.float32), device=device),
+        idx=torch.tensor(np.asarray(nl.idx, np.int32), device=device),
+        valid=torch.tensor(np.asarray(nl.valid, bool), device=device),
+        count=torch.tensor(np.asarray(nl.count, np.int32), device=device),
+    )

@@ -1,8 +1,12 @@
 // q_tet over a column window: the Hopper (sm_90a) kernel of the port.
 //
 // Replaces the Pallas TPU kernel waterorderlib_tpu/ops/pallas/qtet2.py
-// `_make_kernel` / `_launch` (with `slab.extract_k_min` in its body). It
-// computes the same per-row values, not the same blocks:
+// `_make_kernel` / `_launch` (with `slab.extract_k_min` in its body), and
+// the earlier q kernels the same contract serves: qtet_kernel.py
+// `_qtet_frames_kernel` (the brute form over all frames) and qtet_sorted.py
+// `_make_sorted_kernel` (the slab form, with per-frame window starts for a
+// per-frame z-sort). It computes the same per-row values, not the same
+// blocks:
 //
 //   for each row (a center) and each column of its tile's window:
 //     minimum-image displacement (two compare-selects, coordinates wrapped),
@@ -32,7 +36,20 @@
 //
 // Launch: one block of kRows threads per (frame, row block); a row block
 // lies inside one window tile of `row_tile` rows (row_tile % kRows == 0).
-// Window columns stream through shared memory in tiles of kCols.
+// Window columns stream through shared memory in tiles of kCols. Tile t of
+// frame f starts at starts[f * starts_fs + t]: starts_fs = 0 shares one
+// start per tile across frames (the frame-0 slab prep, the brute form);
+// starts_fs = n_tiles gives each frame its own (a per-frame z-sort).
+//
+// `qtet_window_hist_launch` is the same body with an epilogue that also
+// replaces the fused histogram of waterorderlib_tpu/ops/pallas/qtet_kernel.py
+// `_qtet_kernel` (the pallas_call of `order_param_q_pallas`): each row's q
+// goes to bin floor(q * 500) (q == 1 to bin 499), rows with q outside [0, 1]
+// (a NaN window) to none; a block bins its rows into a shared-memory
+// histogram, then adds each non-zero bin to the int32 histogram in device
+// memory with one atomicAdd. Integer atomics keep the counts exact and
+// independent of the blocks' order (the TPU kernel carried a float32
+// histogram across its sequential grid).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,6 +58,7 @@ namespace {
 
 constexpr int kRows = 128;
 constexpr int kCols = 512;
+constexpr int kBins = 500;
 
 __device__ __forceinline__ float min_image(float d, float box, float half) {
   // coordinates are wrapped into [0, L) (pad copies within +/-L), so two
@@ -49,25 +67,28 @@ __device__ __forceinline__ float min_image(float d, float box, float half) {
   return d < -half ? d + box : d;
 }
 
+template <bool kHist>
 __global__ void __launch_bounds__(kRows)
 qtet_window_kernel(const float* __restrict__ rows, long long row_fs, long long row_cs,
                    int n_rows, const float* __restrict__ cols, long long col_fs,
-                   long long col_cs, int n_cols, const int* __restrict__ starts, int w,
-                   const float* __restrict__ boxes, int blocks_per_frame, int row_tile,
-                   float low_sq, float high_sq, float margin_sq,
-                   float* __restrict__ q_out, unsigned char* __restrict__ ok_out) {
+                   long long col_cs, int n_cols, const int* __restrict__ starts,
+                   long long starts_fs, int w, const float* __restrict__ boxes,
+                   int blocks_per_frame, int row_tile, float low_sq, float high_sq,
+                   float margin_sq, float* __restrict__ q_out, unsigned char* __restrict__ ok_out,
+                   int* __restrict__ hist) {
   __shared__ float sx[kCols], sy[kCols], sz[kCols];
+  __shared__ int s_hist[kHist ? kBins : 1];
 
   const int f = blockIdx.x / blocks_per_frame;
   const int rb = blockIdx.x - f * blocks_per_frame;
   const int row = rb * kRows + threadIdx.x;
   const bool live = row < n_rows;
-  const int start = starts[(rb * kRows) / row_tile];
+  const int start = starts[f * starts_fs + (rb * kRows) / row_tile];
 
   const float bx = boxes[3 * f + 0], by = boxes[3 * f + 1], bz = boxes[3 * f + 2];
   const float hx = bx * 0.5f, hy = by * 0.5f, hz = bz * 0.5f;
 
-  if (start < 0 || start > n_cols - w) {  // a window outside the columns
+  if (start < 0 || start > n_cols - w) {  // a window outside the columns (the whole block)
     if (live) {
       q_out[(long long)f * n_rows + row] = nanf("");
       ok_out[(long long)f * n_rows + row] = 0;
@@ -128,8 +149,6 @@ qtet_window_kernel(const float* __restrict__ rows, long long row_fs, long long r
       }
     }
   }
-  if (!live) return;
-
   float ux[4] = {x0, x1, x2, x3}, uy[4] = {y0, y1, y2, y3}, uz[4] = {z0, z1, z2, z3};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -152,9 +171,39 @@ qtet_window_kernel(const float* __restrict__ rows, long long row_fs, long long r
     }
   }
   const float q = count > 0 ? 1.0f - 0.375f * ssum : 0.0f;
-  const long long o = (long long)f * n_rows + row;
-  q_out[o] = q;
-  ok_out[o] = (count >= 4 && d3 <= margin_sq) ? 1 : 0;
+  if (live) {
+    const long long o = (long long)f * n_rows + row;
+    q_out[o] = q;
+    ok_out[o] = (count >= 4 && d3 <= margin_sq) ? 1 : 0;
+  }
+  if constexpr (kHist) {
+    for (int b = threadIdx.x; b < kBins; b += kRows) s_hist[b] = 0;
+    __syncthreads();
+    if (live && q >= 0.0f && q <= 1.0f) {
+      const int b = q == 1.0f ? kBins - 1 : (int)floorf(q * (float)kBins);
+      if (b < kBins) atomicAdd(&s_hist[b], 1);
+    }
+    __syncthreads();
+    for (int b = threadIdx.x; b < kBins; b += kRows) {
+      if (s_hist[b]) atomicAdd(hist + b, s_hist[b]);
+    }
+  }
+}
+
+template <bool kHist>
+int launch(const float* rows, long long row_fs, long long row_cs, int n_rows, const float* cols,
+           long long col_fs, long long col_cs, int n_cols, const int* starts, int w,
+           const float* boxes, int n_frames, int row_tile, long long starts_fs, float low_sq,
+           float high_sq, float margin_sq, float* q_out, unsigned char* ok_out, int* hist,
+           void* stream) {
+  const int blocks_per_frame = (n_rows + kRows - 1) / kRows;
+  const long long n_blocks = (long long)blocks_per_frame * n_frames;
+  if (n_blocks == 0) return 0;
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  qtet_window_kernel<kHist><<<(unsigned)n_blocks, kRows, 0, (cudaStream_t)stream>>>(
+      rows, row_fs, row_cs, n_rows, cols, col_fs, col_cs, n_cols, starts, starts_fs, w, boxes,
+      blocks_per_frame, row_tile, low_sq, high_sq, margin_sq, q_out, ok_out, hist);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -163,16 +212,26 @@ extern "C" int qtet_window_launch(const float* rows, long long row_fs, long long
                                   int n_rows, const float* cols, long long col_fs,
                                   long long col_cs, int n_cols, const int* starts, int w,
                                   const float* boxes, int n_frames, int row_tile,
-                                  float low_sq, float high_sq, float margin_sq, float* q_out,
-                                  unsigned char* ok_out, void* stream) {
-  const int blocks_per_frame = (n_rows + kRows - 1) / kRows;
-  const long long n_blocks = (long long)blocks_per_frame * n_frames;
-  if (n_blocks == 0) return 0;
-  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  qtet_window_kernel<<<(unsigned)n_blocks, kRows, 0, (cudaStream_t)stream>>>(
-      rows, row_fs, row_cs, n_rows, cols, col_fs, col_cs, n_cols, starts, w, boxes,
-      blocks_per_frame, row_tile, low_sq, high_sq, margin_sq, q_out, ok_out);
-  return (int)cudaGetLastError();
+                                  long long starts_fs, float low_sq, float high_sq,
+                                  float margin_sq, float* q_out, unsigned char* ok_out,
+                                  void* stream) {
+  return launch<false>(rows, row_fs, row_cs, n_rows, cols, col_fs, col_cs, n_cols, starts, w,
+                       boxes, n_frames, row_tile, starts_fs, low_sq, high_sq, margin_sq, q_out,
+                       ok_out, nullptr, stream);
+}
+
+// As qtet_window_launch, and the 500-bin histogram of every row's q over
+// [0, 1] added to hist (500,) int32, which must hold zeros.
+extern "C" int qtet_window_hist_launch(const float* rows, long long row_fs, long long row_cs,
+                                       int n_rows, const float* cols, long long col_fs,
+                                       long long col_cs, int n_cols, const int* starts, int w,
+                                       const float* boxes, int n_frames, int row_tile,
+                                       long long starts_fs, float low_sq, float high_sq,
+                                       float margin_sq, float* q_out, unsigned char* ok_out,
+                                       int* hist, void* stream) {
+  return launch<true>(rows, row_fs, row_cs, n_rows, cols, col_fs, col_cs, n_cols, starts, w,
+                      boxes, n_frames, row_tile, starts_fs, low_sq, high_sq, margin_sq, q_out,
+                      ok_out, hist, stream);
 }
 
 extern "C" int qtet_window_rows_per_block() { return kRows; }

@@ -1,21 +1,26 @@
 """q_tet over z-slab windows: the CUDA kernel's wrapper, its plain PyTorch
 version, and the host dispatch (port of waterorderlib_tpu.ops.pallas.qtet2).
 
-One kernel contract (`q_window`) serves three uses:
+One kernel contract (`q_window`) serves these uses:
 - the slab form (`order_param_q_traj`): rows are the z-sorted frame, columns
-  the extended array `SlabPrep.ext_t`, one window start per row tile;
+  the extended array `SlabPrep.ext_t`, one window start per row tile (with
+  starts (F, n_tiles), one per frame and tile: ops/cuda/qtet_sorted.py's
+  per-frame sort);
 - the brute form (`order_param_q_frames`): rows and columns are the wrapped
   frame, start 0, window = N;
 - the straggler patch in `order_param_q_certified`: rows are one frame's
   uncertified atoms, columns that frame, start 0, window = N.
+`q_window_hist` is the same kernel with the dense q kernel's fused 500-bin
+histogram in its epilogue (ops/cuda/qtet_kernel.py).
 
-`q_window` launches the kernel (csrc/qtet_window.cu) on a CUDA tensor and
-calls `q_window_plain` on a CPU tensor; any other device raises. There is no
-fallback from the kernel to the plain version.
+Each wrapper launches its kernel (csrc/qtet_window.cu) on a CUDA tensor and
+calls its plain version on a CPU tensor; any other device raises. There is
+no fallback from the kernel to the plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -25,24 +30,50 @@ from waterorderlib_tpu_torch.ops.cuda.slab import (
     brute_cols, plan, slab_prep_traj, unsort_frames,
 )
 
+Q_BINS = 500  # the fused q histogram's bins over [0, 1]
+
+
+def _starts_stride(rows, cols, starts, boxes, w, row_tile) -> int:
+    """window.check, with `starts` either (n_tiles,), shared by all frames,
+    or (F, n_tiles), one start per (frame, tile); returns the starts' frame
+    stride (0 when shared)."""
+    if starts.dim() != 2:
+        window.check(rows, cols, starts, boxes, w, row_tile)
+        return 0
+    if starts.shape[0] != rows.shape[0] or not starts.is_contiguous():
+        raise ValueError(f"per-frame starts must be contiguous ({rows.shape[0]}, n_tiles), got "
+                         f"{tuple(starts.shape)}")
+    window.check(rows, cols, starts[0], boxes, w, row_tile)
+    return starts.shape[1]
+
+
+def _launch(entry, rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq, outs):
+    stride = _starts_stride(rows, cols, starts, boxes, w, row_tile)
+    window.launch("qtet_window", entry, rows, cols, starts, boxes, w, row_tile,
+                  (low_sq, high_sq, margin_sq), outs, extra=((ctypes.c_longlong, stride),))
+
+
+def _outputs(rows):
+    F, _, n_rows = rows.shape
+    return (torch.empty((F, n_rows), dtype=torch.float32, device=rows.device),
+            torch.empty((F, n_rows), dtype=torch.bool, device=rows.device))
+
 
 def q_window(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq):
     """q_tet and the per-row exactness flag of R rows against one column
-    window per row tile (the contract of ops/cuda/window.py).
+    window per row tile (the contract of ops/cuda/window.py; `starts` may
+    also be (F, n_tiles), one window start per frame and tile).
 
     low_sq, high_sq, margin_sq: squared shell bounds and margin.
 
     Returns (q (F, R) f32, ok (F, R) bool): ok says the 4th neighbor slot is
     filled and lies within margin. An out-of-range window start gives q = NaN.
     """
-    window.check(rows, cols, starts, boxes, w, row_tile)
     if window.runs_plain(rows, "q_window"):
         return q_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq)
-    F, _, n_rows = rows.shape
-    q = torch.empty((F, n_rows), dtype=torch.float32, device=rows.device)
-    ok = torch.empty((F, n_rows), dtype=torch.bool, device=rows.device)
-    window.launch("qtet_window", "qtet_window_launch", rows, cols, starts, boxes, w, row_tile,
-                  (low_sq, high_sq, margin_sq), (q, ok))
+    q, ok = _outputs(rows)
+    _launch("qtet_window_launch", rows, cols, starts, boxes, w, row_tile, low_sq, high_sq,
+            margin_sq, (q, ok))
     q_window.launches += 1
     return q, ok
 
@@ -50,14 +81,31 @@ def q_window(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq)
 q_window.launches = 0
 
 
-def q_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq):
-    """Plain PyTorch version of `q_window`, same contract and tie-break
-    (4 rounds of lowest-column minimum extraction, as slab.extract_k_min)."""
-    window.check(rows, cols, starts, boxes, w, row_tile)
-    q_window_plain.calls += 1
-    F, _, n_rows = rows.shape
-    q = torch.empty((F, n_rows), dtype=torch.float32, device=rows.device)
-    ok = torch.empty((F, n_rows), dtype=torch.bool, device=rows.device)
+def q_window_hist(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq):
+    """`q_window` and, from the same kernel's epilogue, the 500-bin
+    histogram of every row's q over [0, 1] (`q_hist`'s rule). Returns (q,
+    ok, hist (500,) int32)."""
+    if window.runs_plain(rows, "q_window_hist"):
+        return q_window_hist_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq,
+                                   margin_sq)
+    q, ok = _outputs(rows)
+    hist = torch.zeros(Q_BINS, dtype=torch.int32, device=rows.device)
+    _launch("qtet_window_hist_launch", rows, cols, starts, boxes, w, row_tile, low_sq, high_sq,
+            margin_sq, (q, ok, hist))
+    q_window_hist.launches += 1
+    return q, ok, hist
+
+
+q_window_hist.launches = 0
+
+
+def _q_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq):
+    _starts_stride(rows, cols, starts, boxes, w, row_tile)
+    if starts.dim() == 2:  # one window start per (frame, tile): frame by frame
+        outs = [_q_plain(rows[f : f + 1], cols[f : f + 1], starts[f], boxes[f : f + 1], w,
+                         row_tile, low_sq, high_sq, margin_sq) for f in range(rows.shape[0])]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+    q, ok = _outputs(rows)
     for r0, r1, top in window.topk_tiles(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, 4):
         if top is None:  # a window outside the columns
             q[:, r0:r1], ok[:, r0:r1] = math.nan, False
@@ -74,7 +122,36 @@ def q_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, marg
     return q, ok
 
 
+def q_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq):
+    """Plain PyTorch version of `q_window`, same contract and tie-break
+    (4 rounds of lowest-column minimum extraction, as slab.extract_k_min)."""
+    q_window_plain.calls += 1
+    return _q_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq)
+
+
 q_window_plain.calls = 0
+
+
+def q_window_hist_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq):
+    """Plain PyTorch version of `q_window_hist`."""
+    q_window_hist_plain.calls += 1
+    q, ok = _q_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq)
+    return q, ok, q_hist(q)
+
+
+q_window_hist_plain.calls = 0
+
+
+def q_hist(q: torch.Tensor) -> torch.Tensor:
+    """The fused histogram rule of the JAX package's dense q kernel
+    (qtet_kernel.py:101-119): q in [0, 1] goes to bin floor(q * 500) in
+    float32, q == 1 to the last bin; other values (NaN) to none. Returns
+    (500,) int32 counts. This is not `histograms.masked_histogram`'s
+    threshold rule, which can put a value on a bin edge one bin apart."""
+    qf = q.reshape(-1)
+    qf = qf[(qf >= 0.0) & (qf <= 1.0)]
+    b = torch.where(qf == 1.0, Q_BINS - 1, torch.floor(qf * float(Q_BINS)).to(torch.int64))
+    return torch.bincount(b[b < Q_BINS], minlength=Q_BINS).to(torch.int32)
 
 
 def _sq(v: float) -> float:

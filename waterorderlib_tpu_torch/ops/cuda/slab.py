@@ -109,6 +109,50 @@ def slab_prep_traj(pos, boxes, specs, row_tile: int, pad: int) -> SlabPrep:
     return SlabPrep(ext_t, tuple(starts_all), tuple(covered_all), order0, tuple(ws), n_tiles)
 
 
+class FramePrep(NamedTuple):
+    """A z-sort and extended array per frame, with one window start per
+    (frame, row tile)."""
+
+    ext_t: torch.Tensor    # (F, 3, n_ext) extended transposed coordinates, f32
+    starts: torch.Tensor   # (F, n_tiles) int32 window starts in columns
+    covered: torch.Tensor  # (F,) bool: every tile's window held its slab candidates
+    order: torch.Tensor    # (F, N) each frame's z-ordering (sorted -> original)
+    w: int                 # window width
+
+
+def slab_prep_frames(pos, boxes, margin: float, window: int, row_tile: int, pad: int) -> FramePrep:
+    """Per-frame z-sort prep (the prep of the JAX package's
+    `qtet_sorted.order_param_q_pallas_sorted`): each frame sorted by its
+    own wrapped z, extended by +/-L copies of `pad` boundary atoms, and each
+    (frame, tile) given the window that reaches `margin` below its first
+    and above its last atom. `covered[f]` also checks that the pad copies
+    reach that deep in frame f. pos: (F, N, 3) f32; boxes: (F, 3)."""
+    F, n = pos.shape[0], pos.shape[1]
+    if not 0 <= pad <= n:
+        raise ValueError(f"pad={pad} must lie in [0, {n}]")
+    n_tiles = -(-n // row_tile)
+    wrapped = torch.remainder(pos, boxes[:, None, :])
+    order = torch.argsort(wrapped[..., 2], dim=1, stable=True)
+    sp = torch.take_along_dim(wrapped, order[..., None], dim=1)
+    z_shift = torch.zeros((F, 1, 3), dtype=sp.dtype, device=sp.device)
+    z_shift[:, 0, 2] = boxes[:, 2]
+    ext = torch.cat([sp[:, n - pad :, :] - z_shift, sp, sp[:, :pad, :] + z_shift], dim=1)
+    n_ext = ext.shape[1]
+    w = min(window, n_ext, n)  # no window holds an atom and its pad copy
+    ext_z = ext[..., 2].contiguous()
+    tile_first = torch.arange(n_tiles, device=pos.device) * row_tile
+    tile_last = torch.clamp(tile_first + row_tile - 1, max=n - 1)
+    z_lo = sp[:, tile_first, 2].contiguous() - margin
+    z_hi = sp[:, tile_last, 2].contiguous() + margin
+    starts = torch.searchsorted(ext_z, z_lo, side="left")
+    ends = torch.searchsorted(ext_z, z_hi, side="right")
+    starts = torch.clamp(starts, 0, n_ext - w)
+    pad_ok = (ext_z[:, 0] <= z_lo[:, 0]) & (ext_z[:, -1] >= z_hi[:, -1])
+    covered = torch.all(ends - starts <= w, dim=1) & pad_ok
+    ext_t = ext.transpose(1, 2).to(torch.float32).contiguous()
+    return FramePrep(ext_t, starts.to(torch.int32).contiguous(), covered, order, w)
+
+
 def raw_ext_t(pos: torch.Tensor, order0: torch.Tensor, pad: int) -> torch.Tensor:
     """(F, 3, n_ext) stored (not wrapped) coordinates in the extended
     array's column layout: permuted by `order0`, with the pad copies keeping
