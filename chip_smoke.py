@@ -84,16 +84,33 @@ Phases (each raises on failure; nothing is caught):
    fused histogram to its plain version), the dense q over 1024 frames,
    and the v1 slab q (per-frame z-sort, its per-frame window starts against
    the plain version on 8 frames; frame-0 sort) over 1024 frames, equal to
-   the brute q wherever ok and covered but at exact 4th/5th-neighbor ties.
-Near the end, a line says whether scipy imports on this machine, and one
-sums up ptxas's registers and spills.
+   the brute q wherever ok and covered but at exact 4th/5th-neighbor ties;
+10. the Voronoi volumes slice (`_voronoi_phases`): both forms of
+   `voronoi_topk.cu` equal to their plain versions (dist and payload) at
+   12,294 points (the window form with `_suggest_win`'s window, its full
+   scan at k 256 on 64 rows, the cell-grid form at k 64), on a 2,048-row
+   subset at k 96, 128 and 192 (the escalation grids), at 2,048 waters on
+   the pruned mirror set, and on a planted tie; `voronoi_calc(engine=
+   "device")` on `make_water_box(12288, 32 frames, 6-atom solute)` in two
+   chunks of 16 (tier 1 on the cell-grid form; the certified count of each
+   tier and the host closes printed), frames 0-1 against Qhull in float64
+   (every cell within 1.5e-3) and the host engine, `chunk_frames=1` equal
+   to one chunk; `voronoi_calc` at 2,048 waters x 16 frames (tier 1 on
+   the window form); each form's time at its main-path launch beside its
+   bound, its plain version and `torch.topk` on the same distances; a warm
+   `voronoi_calc` on the stage clock.
+scipy.spatial is imported right after the build (the Voronoi host close
+needs it). Near the end, a line says whether scipy imports on this
+machine, and one sums up ptxas's registers and spills.
 
 The last line is one JSON object, {"ok": true, "device": {...}}; before it
 come a JSON line of the kernels (launches in their slice, largest error
 against the plain version (for the occlusion kernels a count of points),
-times per frame (the Willard and SASA kernels and `qtet_window_hist`: per
-call) of the kernel, the plain version and the bound, "bound_by";
-"library_ms" is null: no single PyTorch call computes these functions), and
+times per frame (the Willard, SASA and Voronoi kernels and
+`qtet_window_hist`: per call) of the kernel, the plain version and the
+bound, "bound_by"; "library_ms" is `torch.topk` on the same distances for
+the Voronoi search, null elsewhere: no single PyTorch call computes the
+other functions), and
 the card's name and power limit. Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero and
 prints no result. Imports nothing of JAX and nothing of the JAX package.
@@ -154,7 +171,9 @@ SOURCES = {"qtet_window": "waterorderlib_tpu_torch/ops/cuda/csrc/qtet_window.cu"
            "willard_points": "waterorderlib_tpu_torch/ops/cuda/csrc/willard.cu",
            "qtet_window_hist": "waterorderlib_tpu_torch/ops/cuda/csrc/qtet_window.cu",
            "sasa_topk": "waterorderlib_tpu_torch/ops/cuda/csrc/sasa.cu",
-           "sasa_brute": "waterorderlib_tpu_torch/ops/cuda/csrc/sasa.cu"}
+           "sasa_brute": "waterorderlib_tpu_torch/ops/cuda/csrc/sasa.cu",
+           "voronoi_window_topk": "waterorderlib_tpu_torch/ops/cuda/csrc/voronoi_topk.cu",
+           "voronoi_cellgrid_topk": "waterorderlib_tpu_torch/ops/cuda/csrc/voronoi_topk.cu"}
 REPLACES = {"qtet_window": "waterorderlib_tpu/ops/pallas/qtet2.py:111, qtet_kernel.py:286, "
                            "qtet_sorted.py:192, :315",
             "angles_window": "waterorderlib_tpu/ops/pallas/angles_kernel.py:159",
@@ -167,7 +186,9 @@ REPLACES = {"qtet_window": "waterorderlib_tpu/ops/pallas/qtet2.py:111, qtet_kern
             "willard_points": "waterorderlib_tpu/ops/pallas/willard_kernel.py:102",
             "qtet_window_hist": "waterorderlib_tpu/ops/pallas/qtet_kernel.py:159",
             "sasa_topk": "waterorderlib_tpu/ops/pallas/sasa_kernel.py:81",
-            "sasa_brute": "waterorderlib_tpu/ops/pallas/sasa_kernel.py:81"}
+            "sasa_brute": "waterorderlib_tpu/ops/pallas/sasa_kernel.py:81",
+            "voronoi_window_topk": "waterorderlib_tpu/ops/pallas/voronoi_topk.py:112",
+            "voronoi_cellgrid_topk": "waterorderlib_tpu/ops/pallas/voronoi_topk.py:218"}
 # the H-bond slice: hb_calc's default cuts; a solute with one O acceptor,
 # one O-H donor, one N acceptor and two N-H donors, so that each of the nine
 # acceptor x donor sets is non-empty; the slab tier's size
@@ -222,6 +243,22 @@ SASA_CLUSTER = 130
 # point against every occluder that can occlude (`_sasa_tests`)
 SASA_POINT_FLOPS, SASA_TEST_FLOPS, SASA_LOAD_FLOPS = 6, 8, 19
 N_FRAMES_LEGACY_PLAIN = 8
+# the Voronoi slice: the JAX bench's Voronoi size, 12,288 waters and the
+# 6-atom solute (12,294 points: the cell-grid form serves tiers 1-4), 32
+# frames in voronoi_calc's chunks of 16; 2,048 waters x 16 frames, where
+# tier 1 takes the z-window form on the pruned mirror set; the escalation
+# tiers' grid checks on a 2,048-row subset, the last tier's full scan on 64
+# rows. Certified cells against Qhull in float64 (the JAX package's f32
+# band) and per-frame means against the host engine
+VOR_N, VOR_FRAMES, VOR_SMALL, VOR_SMALL_FRAMES = 12_288, 32, 2_048, 16
+VOR_SOLUTE = ["C", "C", "O", "C", "C", "O"]
+VOR_SUBSET, VOR_LAST_ROWS = 2_048, 64
+VOR_REF_TOL, VOR_MEAN_TOL = 1.5e-3, 5e-3
+# float32 operations per (row, candidate lane) the search must do: 3
+# subtracts, 3 products, 2 adds, the comparison with the k-th distance.
+# Lanes counted from the data: a window's every candidate; a row's 27 cells'
+# members (not their empty slots)
+VOR_LANE_FLOPS = 9
 
 
 def _check(cond: bool, what: str) -> None:
@@ -1308,6 +1345,345 @@ def _qtet_legacy_phases(card, kernels, errs, launches, times):
         errs["qtet_window"].append(err)
 
 
+def _vor_system(n_waters, n_frames, seed, solute=None):
+    """make_water_box's system and its heavy atoms (the waters first),
+    as voronoi_calc takes them: (top, traj, heavy, n_waters)."""
+    import numpy as np
+    from waterorderlib_tpu_torch.io.synthetic import make_water_box
+
+    top, traj = make_water_box(n_waters, n_frames=n_frames, seed=seed, solute_elements=solute)
+    heavy = np.concatenate([top.get_wat_inds("WAT")[0], top.get_sol_inds("WAT")[0]])
+    return top, traj, heavy, n_waters
+
+
+def _vor_cmp(label, kern, plain, args, errs):
+    """Kernel against plain version on the same inputs: dist and payload
+    exactly equal. Returns the kernel's output."""
+    import torch
+
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    both = torch.isfinite(got[0]) & torch.isfinite(want[0])
+    err = float((got[0] - want[0])[both].abs().max()) if bool(both.any()) else 0.0
+    print(f"[kernel] {kern.__name__} {label}: dist max|d|={err:.3e}, payloads differ in "
+          f"{int((got[1] != want[1]).sum())} of {got[1].numel()} slots, "
+          f"{int(torch.isfinite(got[0]).sum())} filled", flush=True)
+    _check(same and bool((torch.isfinite(got[0]) == torch.isfinite(want[0])).all()),
+           f"{kern.__name__} {label}: differs from the plain version")
+    errs[kern.__name__].append(err)
+    return got
+
+
+def _vor_window_args(vd, centers, ext, k, row_block, win):
+    """The window kernel's arguments as _windowed_topk makes them."""
+    import torch
+
+    _, exts, _, cs, start = vd._window_prep(centers, ext, row_block, win)
+    return (cs, exts, start.to(torch.int32).contiguous(), k, row_block, win)
+
+
+def _vor_cellgrid_args(vd, centers, ext, box_l, k, cg):
+    """The cell-grid kernel's arguments as _cellgrid_topk makes them from
+    _cellgrid_build's grid, and the grid."""
+    grid = vd._cellgrid_build(ext, box_l, cg[0], cg[1])
+    _, cid = vd._cellgrid_rows(centers, grid[4], cg[0])
+    return (centers.contiguous(), cid, grid[0], grid[1], cg[0], k), grid
+
+
+def _vor_cellgrid_lanes(args):
+    """Candidate lanes the rows' 27 cells hold (their members, not the
+    empty slots): the search's data-dependent work."""
+    import torch
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
+
+    centers, cid, _, tbl_idx, n_side, _ = args
+    count = (tbl_idx >= 0).sum(-1)  # (F, n_cells)
+    offs = torch.tensor(vtopk._offsets(n_side), device=cid.device)
+    cells = (cid.long()[..., None] + offs).reshape(cid.shape[0], -1)
+    return int(torch.gather(count, 1, cells).sum())
+
+
+def _vor_bound_ms(lanes, in_bytes, rows, k):
+    """Least time of one search launch: VOR_LANE_FLOPS per (row, lane) over
+    the float32 peak, or the bytes (each input read once, dist and payload
+    written once) over the memory rate. Returns (ms, bound_by)."""
+    t_ops = lanes * VOR_LANE_FLOPS / PEAK_FP32 * 1e3
+    t_bytes = (in_bytes + rows * k * 8) / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _vor_dsq_window(args):
+    """The (rows, win) squared-distance matrix of a window launch, for
+    torch.topk's time (computed once, outside the timing)."""
+    import torch
+
+    cs, exts, start, k, rb, win = args
+    F, R, _ = cs.shape
+    lanes = torch.arange(win, device=cs.device)
+    out = []
+    for f in range(F):
+        cand = exts[f][start[f].long()[:, None] + lanes]  # (nb, win, 3)
+        c = cs[f].reshape(-1, rb, 3)
+        d = c[:, :, None, :] - cand[:, None, :, :]
+        out.append(((d * d).sum(-1)).reshape(R, win))
+    return torch.cat(out)
+
+
+def _vor_dsq_cellgrid(args):
+    """The (rows, 27 cap) squared-distance matrix of a cell-grid launch,
+    parked slots at +inf, for torch.topk's time."""
+    import torch
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
+
+    centers, cid, tbl_pos, _, n_side, _ = args
+    F, R, _ = centers.shape
+    cap = tbl_pos.shape[-1]
+    offs = torch.tensor(vtopk._offsets(n_side), device=cid.device)
+    out = []
+    for f in range(F):
+        planes = tbl_pos[f][cid[f].long()[:, None] + offs]  # (R, 27, 3, cap)
+        d = centers[f][:, :, None, None] - planes.permute(0, 2, 1, 3)  # (R, 3, 27, cap)
+        out.append((d * d).sum(1).reshape(R, 27 * cap))
+    return torch.cat(out)
+
+
+def _voronoi_kernel_checks(card, kernels, errs):
+    """Both forms of csrc/voronoi_topk.cu against their plain versions,
+    exactly, at the main path's shapes: the window form at 12,294 points
+    (k 64, _suggest_win's window), its full scan at k 256 on 64 rows, and
+    at 2,048 waters on the pruned mirror set; the cell-grid form at 12,294
+    points (k 64, s_factor 1.12) and at k 96, 128 and 192 on a 2,048-row
+    subset (s_factor 1.4); a planted tie."""
+    import numpy as np
+    import torch
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
+    from waterorderlib_tpu_torch.surface import voronoi_device as vd
+
+    dev = torch.device("cuda")
+    wk, wp = vtopk.voronoi_window_topk, vtopk.voronoi_window_topk_plain
+    ck, cp = vtopk.voronoi_cellgrid_topk, vtopk.voronoi_cellgrid_topk_plain
+    kernels["voronoi_window_topk"] = (wk, wp)
+    kernels["voronoi_cellgrid_topk"] = (ck, cp)
+    _, traj, heavy, _ = _vor_system(VOR_N, 1, 7, VOR_SOLUTE)
+    n = len(heavy)
+    box_l = float(traj.boxes[0][0])
+    pts = torch.as_tensor(traj.positions[0][heavy], dtype=torch.float32, device=dev)[None]
+    box_t = torch.tensor([box_l], dtype=torch.float32, device=dev)
+    ext = vd.mirror_points_device(pts, box_t)
+    p4 = ext.shape[1]
+    win = vd._suggest_win(n, p4, box_l, 64)
+    _vor_cmp(f"{n} points, k 64, win {win} of {p4}", wk, wp,
+             _vor_window_args(vd, pts, ext, 64, 256, win), errs)
+    rs = np.random.RandomState(3)
+    last = torch.as_tensor(rs.choice(n, VOR_LAST_ROWS, replace=False), device=dev)
+    _vor_cmp(f"full scan, k 256, {VOR_LAST_ROWS} rows x {p4} candidates", wk, wp,
+             _vor_window_args(vd, pts[:, last], ext, 256, VOR_LAST_ROWS, p4), errs)
+    cg = vd._suggest_cellgrid(n, box_l, 64)
+    _check(cg is not None, f"no cell grid at {n} points")
+    args, _ = _vor_cellgrid_args(vd, pts, ext, box_t, 64, cg)
+    _vor_cmp(f"{n} points, k 64, grid {cg}", ck, cp, args, errs)
+    sub = torch.as_tensor(rs.choice(n, VOR_SUBSET, replace=False), device=dev)
+    for ks in (96, 128, 192):
+        cg2 = vd._suggest_cellgrid(n, box_l, ks, s_factor=1.4)
+        _check(cg2 is not None, f"no escalation grid at k {ks}")
+        args, _ = _vor_cellgrid_args(vd, pts[:, sub], ext, box_t, ks, cg2)
+        _vor_cmp(f"{VOR_SUBSET}-row subset, k {ks}, grid {cg2}", ck, cp, args, errs)
+    _, traj2, heavy2, _ = _vor_system(VOR_SMALL, 1, 8)
+    box2 = float(traj2.boxes[0][0])
+    pts2 = torch.as_tensor(traj2.positions[0][heavy2], dtype=torch.float32, device=dev)[None]
+    budget = vd._suggest_mirror_budget(len(heavy2), box2, 64)
+    _check(budget > 0, f"no mirror pruning at {VOR_SMALL} waters")
+    ext2, _, _ = vd.mirror_points_pruned(pts2, torch.tensor([box2], device=dev), budget)
+    win2 = vd._suggest_win(len(heavy2), ext2.shape[1], box2, 64)
+    _vor_cmp(f"{VOR_SMALL} waters, pruned mirrors ({ext2.shape[1]}), k 64, win {win2}", wk, wp,
+             _vor_window_args(vd, pts2, ext2, 64, 256, win2), errs)
+    # a planted tie: four candidates at one distance (lanes 3, 7, 40, 41)
+    # and a coincident one (lane 10, dropped); the lowest lanes win
+    c = torch.zeros((1, 8, 3), device=dev)
+    e = torch.full((1, 64, 3), 50.0, device=dev)
+    e[0, :, 0] += torch.arange(64, device=dev, dtype=torch.float32)
+    for lane in (3, 7, 40, 41):
+        e[0, lane] = torch.tensor([1.0, 0.0, 0.0] if lane % 2 else [0.0, 1.0, 0.0], device=dev)
+    e[0, 10] = 0.0
+    got = _vor_cmp("a planted 4-way tie", wk, wp,
+                   (c, e, torch.zeros((1, 1), dtype=torch.int32, device=dev), 3, 8, 64), errs)
+    _check(got[1][0, 0].tolist() == [3, 7, 40] and bool((got[0][0, :, :3] == 1.0).all()),
+           f"planted tie: lanes {got[1][0, 0].tolist()}, not [3, 7, 40]")
+    del pts, ext, pts2, ext2
+    torch.cuda.empty_cache()
+
+
+def _vor_drive(label, kernels, fn):
+    """Drive a Voronoi path with every kernel's and plain version's count
+    and the tier statistics at 0: (result, {kernel: launches}, tiers,
+    plain calls, wall s)."""
+    import torch
+    from waterorderlib_tpu_torch.surface import voronoi_device as vd
+
+    torch.cuda.synchronize()
+    for k, p in kernels.values():
+        k.launches, p.calls = 0, 0
+    vd.tier_stats.clear()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = {name: kernels[name][0].launches for name in ("voronoi_window_topk",
+                                                         "voronoi_cellgrid_topk")}
+    plain = sum(p.calls for _, p in kernels.values())
+    tiers = {str(k): dict(v) for k, v in vd.tier_stats.items()}
+    print(f"[slice] {label}: launches {ran}, plain calls {plain}, wall {wall:.3f} s", flush=True)
+    print(f"[tiers] {label}: {json.dumps(tiers)}", flush=True)
+    _check(plain == 0, f"{label} called a plain version")
+    return res, ran, dict(vd.tier_stats), wall
+
+
+def _voronoi_phases(card, kernels, errs, launches, times):
+    """The Voronoi volumes slice: both kernel forms against their plain
+    versions; voronoi_calc(engine="device") at 12,294 points x 32 frames in
+    two chunks of 16 (tier 1 and the escalation tiers on the cell-grid
+    form; the last tier, if any row reaches it, on the window form's full
+    scan), against Qhull in float64 and the host engine on frames 0-1, and
+    chunk_frames=1 against 16 on 2 frames; voronoi_calc at 2,048 waters x
+    16 frames (tier 1 on the window form, pruned mirrors); each form's
+    time at its main-path launch beside its bound, its plain version and
+    torch.topk; a warm voronoi_calc on the stage clock."""
+    import numpy as np
+    import torch
+    from waterorderlib_tpu_torch.drivers.voronoi_driver import voronoi_calc
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
+    from waterorderlib_tpu_torch.surface import voronoi_device as vd
+    from waterorderlib_tpu_torch.surface.voronoi import voronoi_volumes
+
+    dev = torch.device("cuda")
+    _voronoi_kernel_checks(card, kernels, errs)
+    wk, wp = kernels["voronoi_window_topk"]
+    ck, cp = kernels["voronoi_cellgrid_topk"]
+
+    top, traj, heavy, nw = _vor_system(VOR_N, VOR_FRAMES, 0, VOR_SOLUTE)
+
+    def calc(t, tr, **kw):
+        with tempfile.TemporaryDirectory() as d:
+            res = voronoi_calc(t, tr, output_dir=d, device="cuda", **kw)
+            files = {f: np.loadtxt(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+        return res, files
+
+    (res, files), ran, tiers, wall = _vor_drive(
+        f"voronoi_calc {len(heavy)} points x {VOR_FRAMES} frames (engine device, chunks of 16)",
+        kernels, lambda: calc(top, traj, engine="device"))
+    launches["voronoi_cellgrid_topk"] = ran["voronoi_cellgrid_topk"]
+    t1 = tiers.get((32, 64), {})
+    _check(t1.get("form") == "cellgrid" and ran["voronoi_cellgrid_topk"] >= 2,
+           f"tier 1 at {len(heavy)} points was not served by the cell-grid form: {t1}")
+    last_ran = (128, 256) in tiers
+    _check(not last_ran or (tiers[(128, 256)]["form"] == "full"
+                            and ran["voronoi_window_topk"] == tiers[(128, 256)]["launches"]),
+           "the last tier was not the window form's full scan")
+    print(f"[slice] voronoi_calc: the last tier (128, 256) ran: {last_ran}; means "
+          f"{[float(r[0][0]) for r in res]}", flush=True)
+    _check(len(files) == 3 and all(h.shape == (500, 2) and h[:, 1].sum() > 0
+                                   for h in files.values()), "voronoi_calc: histogram files")
+    _check(all(np.all(np.isfinite(np.asarray(a))) for r in res for a in r),
+           "voronoi_calc: statistics not finite")
+    n_pts_frames = VOR_FRAMES * nw
+    n_host = tiers.get("host", {}).get("rows", 0)
+    print(f"[slice] voronoi_calc: {n_pts_frames} cells, certified per tier "
+          + ", ".join(f"{k}: {v.get('certified', 0)} of {v['rows']} rows searched ({v['form']}, "
+                      f"{v['launches']} launches)" for k, v in tiers.items() if k != "host")
+          + f"; host closes {n_host} ({tiers.get('host', {}).get('full_search', 0)} by a full "
+          f"host search); wall {wall:.3f} s; {card}", flush=True)
+
+    # frames 0-1 against Qhull in float64 and the host engine
+    pos01 = traj.positions[:2][:, heavy]
+    box01 = traj.boxes[:2, 0].astype(np.float64)
+    vol_d, area_d, n_c = vd.voronoi_volumes_hybrid_frames(pos01, box01, nw, device="cuda")
+    worst = worst_mean = 0.0
+    for t in range(2):
+        vh, ah = voronoi_volumes(pos01[t].astype(np.float64), float(box01[t]), nw)
+        worst = max(worst, float(np.max(np.abs(vol_d[t] - vh) / vh)),
+                    float(np.max(np.abs(area_d[t] - ah) / ah)))
+        worst_mean = max(worst_mean, abs(vol_d[t].mean() - vh.mean()) / vh.mean(),
+                         abs(area_d[t].mean() - ah.mean()) / ah.mean())
+    print(f"[slice] frames 0-1 ({2 * nw} cells, {n_c} device-certified) against Qhull float64: "
+          f"max relative error of a cell's volume or area {worst:.3e} (limit {VOR_REF_TOL}), of "
+          f"a frame's mean {worst_mean:.3e} (limit {VOR_MEAN_TOL})", flush=True)
+    _check(worst <= VOR_REF_TOL and worst_mean <= VOR_MEAN_TOL,
+           "voronoi volumes differ from Qhull beyond the float32 band")
+    res_host, _ = calc(top, traj[:2], engine="host")
+    res_dev, _ = calc(top, traj[:2], engine="device")
+    gap = max(abs(float(a[0][0]) - float(b[0][0])) / abs(float(b[0][0]))
+              for a, b in zip(res_dev, res_host) if float(b[0][0]) != 0.0)
+    res_one, _ = calc(top, traj[:2], engine="device", chunk_frames=1)
+    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               for a, b in zip(res_dev, res_one))
+    print(f"[slice] voronoi_calc frames 0-1: device against host engine, largest relative gap "
+          f"of the six means {gap:.3e} (limit {VOR_MEAN_TOL}); chunk_frames=1 equals 16: {same}",
+          flush=True)
+    _check(gap <= VOR_MEAN_TOL, "voronoi_calc: device and host engines differ")
+    _check(same, "voronoi_calc: chunk_frames=1 differs from one chunk")
+
+    # 2,048 waters: tier 1 on the window form, pruned mirrors
+    top2, traj2, heavy2, nw2 = _vor_system(VOR_SMALL, VOR_SMALL_FRAMES, 5)
+    (res2, files2), ran2, tiers2, wall2 = _vor_drive(
+        f"voronoi_calc {len(heavy2)} points x {VOR_SMALL_FRAMES} frames (engine device)",
+        kernels, lambda: calc(top2, traj2, engine="device"))
+    launches["voronoi_window_topk"] = ran2["voronoi_window_topk"]
+    _check(tiers2.get((32, 64), {}).get("form") == "window" and ran2["voronoi_window_topk"] >= 1,
+           f"tier 1 at {VOR_SMALL} waters was not served by the window form: {tiers2}")
+    _check(all(np.all(np.isfinite(np.asarray(a))) for r in res2 for a in r),
+           "voronoi_calc at 2,048 waters: statistics not finite")
+    print(f"[slice] voronoi_calc {VOR_SMALL} waters: means {[float(r[0][0]) for r in res2]}",
+          flush=True)
+
+    # times at the main path's launches: the cell-grid form's tier 1 of a
+    # 16-frame chunk at 12,294 points; the window form's tier 1 at 2,048
+    # waters x 16 frames (pruned mirrors)
+    pb = torch.as_tensor(traj.positions[:16][:, heavy], device=dev)
+    bl = torch.as_tensor(traj.boxes[:16, 0], device=dev)
+    cg = vd._suggest_cellgrid(len(heavy), float(bl.min()), 64)
+    c_args, _ = _vor_cellgrid_args(vd, pb[:, :nw], vd.mirror_points_device(pb, bl), bl, 64, cg)
+    pb2 = torch.as_tensor(traj2.positions[:, heavy2], device=dev)
+    bl2 = torch.as_tensor(traj2.boxes[:, 0], device=dev)
+    _, win2, mb2, _ = vd._batch_static_config(traj2.positions[:, heavy2], traj2.boxes[:, 0],
+                                              32, 64, torch.float32)
+    ext2, _, _ = vd.mirror_points_pruned(pb2, bl2, mb2)
+    w_args = _vor_window_args(vd, pb2[:, :nw2], ext2, 64, 256, win2)
+    for name, kern, plain, args in (("voronoi_cellgrid_topk", ck, cp, c_args),
+                                    ("voronoi_window_topk", wk, wp, w_args)):
+        rows = args[0].shape[0] * args[0].shape[1]
+        if name == "voronoi_cellgrid_topk":
+            lanes = _vor_cellgrid_lanes(args)
+            in_bytes = 16 * rows + 16 * args[3].numel()  # centers, cell ids; table slots
+            dsq = _vor_dsq_cellgrid(args)
+            shape = f"{rows} rows x 27 cells of cap {args[3].shape[-1]}, grid {cg}"
+        else:
+            lanes = rows * args[5]
+            in_bytes = 12 * rows + 12 * args[1].numel() // 3 + 4 * args[2].numel()
+            dsq = _vor_dsq_window(args)
+            shape = f"{rows} rows x win {args[5]} of {args[1].shape[1]} candidates"
+        ms = _ms(kern, args, 5)
+        plain_ms = _ms(plain, args, 1)
+        lib_ms = _ms(lambda x: torch.topk(x, 64, largest=False), (dsq,), 5)
+        bound, bound_by = _vor_bound_ms(lanes, in_bytes, rows, 64)
+        times[name] = (ms, plain_ms, bound, bound_by, lib_ms)
+        print(f"[time] {name}, tier 1 of a {args[0].shape[0]}-frame batch ({shape}, {lanes} "
+              f"lanes): kernel {ms:.5f} ms, plain {plain_ms:.3f} ms, torch.topk on the "
+              f"{tuple(dsq.shape)} distances {lib_ms:.5f} ms, bound {bound:.5f} ms ({bound_by}); "
+              f"{card}", flush=True)
+        del dsq
+    last_args = _vor_window_args(vd, pb[:1, torch.arange(VOR_LAST_ROWS, device=dev) * 97],
+                                 vd.mirror_points_device(pb[:1], bl[:1]), 256, VOR_LAST_ROWS,
+                                 4 * len(heavy))
+    print(f"[time] voronoi_window_topk, the last tier's full scan ({VOR_LAST_ROWS} rows x "
+          f"{4 * len(heavy)} candidates, k 256): kernel {_ms(wk, last_args, 5):.5f} ms; {card}",
+          flush=True)
+    del pb, bl, c_args, pb2, ext2, w_args, last_args
+    torch.cuda.empty_cache()
+    _stages("voronoi_calc", lambda d: voronoi_calc(top, traj[:16], output_dir=d,
+                                                   engine="device", device="cuda"))
+
+
 def main() -> int:
     import torch
 
@@ -1341,10 +1717,12 @@ def main() -> int:
           flush=True)
     t0 = time.perf_counter()
     sass = _sass_start()
-    build.build_all(["qtet_window", "nbr_window", "lsi_window", "hbond", "willard", "sasa"])
-    print(f"[build] qtet_window.cu, nbr_window.cu, lsi_window.cu, hbond.cu, willard.cu and sasa.cu "
-          f"built in parallel in {time.perf_counter() - t0:.2f} s", flush=True)
+    build.build_all(["qtet_window", "nbr_window", "lsi_window", "hbond", "willard", "sasa",
+                     "voronoi_topk"])
+    print(f"[build] qtet_window.cu, nbr_window.cu, lsi_window.cu, hbond.cu, willard.cu, sasa.cu "
+          f"and voronoi_topk.cu built in parallel in {time.perf_counter() - t0:.2f} s", flush=True)
     sass_ops = _sass_ops(*sass)
+    import scipy.spatial  # noqa: F401  (the Voronoi host close: fail now if it is missing)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "Function properties" in line or "registers" in line or "spill" in line:
@@ -1917,6 +2295,9 @@ def main() -> int:
     _sasa_phases(card, kernels, errs, launches, times)
     _qtet_legacy_phases(card, kernels, errs, launches, times)
 
+    # 10. the Voronoi volumes slice
+    _voronoi_phases(card, kernels, errs, launches, times)
+
     # no jax, and nothing of the JAX package
     _check("jax" not in sys.modules, "jax was imported")
     shared = sorted(m for m in sys.modules
@@ -1937,7 +2318,7 @@ def main() -> int:
         "plain_ms": times[name][1],
         "bound_ms": times[name][2],
         "bound_by": times[name][3],
-        "library_ms": None,
+        "library_ms": times[name][4] if len(times[name]) > 4 else None,
     } for name in SOURCES]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

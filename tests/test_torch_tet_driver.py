@@ -108,9 +108,10 @@ def test_cli_tet_on_cpu(tmp_path):
 def test_port_imports_no_jax(tmp_path):
     """Importing the port and running its drivers (the four order
     parameters, hb_calc, get_bound_wrap, density_grid, sasa_grid,
-    density_voxel, sasa_per_atom, sasa_calc and sphere_volumes) and the
-    earlier q kernels (dense, frames, v1 slab) leaves jax, and every module
-    of the JAX package, out of sys.modules."""
+    density_voxel, sasa_per_atom, sasa_calc and sphere_volumes), the
+    earlier q kernels (dense, frames, v1 slab) and voronoi_calc (device and
+    host engines: scipy, not jax) leaves jax, and every module of the JAX
+    package, out of sys.modules."""
     import __graft_entry__ as g
 
     code = (
@@ -144,6 +145,10 @@ def test_port_imports_no_jax(tmp_path):
         "assert qtet_kernel.order_param_q_dense_frames(tp, tb)[0].shape == (2, 64)\n"
         "assert qtet_sorted.order_param_q_sorted(tp, tb, pad=64)[0].shape == (2, 64)\n"
         "assert qtet_sorted.order_param_q_sorted_traj(tp, tb, pad=64)[0].shape == (2, 64)\n"
+        "from waterorderlib_tpu_torch.drivers.voronoi_driver import voronoi_calc\n"
+        "for eng in ('device', 'host'):\n"
+        f"    assert len(voronoi_calc(top, traj, output_dir={str(tmp_path)!r}, engine=eng,\n"
+        "                            device='cpu')) == 6\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'waterorderlib_tpu' or m.startswith('waterorderlib_tpu.')]\n"

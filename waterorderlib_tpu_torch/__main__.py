@@ -7,6 +7,7 @@
     python -m waterorderlib_tpu_torch lsi sys.json sys.npz --output-dir out/
     python -m waterorderlib_tpu_torch hb sys.json sys.npz --output-dir out/
     python -m waterorderlib_tpu_torch boundwrap sys.json sys.npz --cache bw.npz
+    python -m waterorderlib_tpu_torch voronoi sys.json sys.npz --engine device
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ def main(argv=None):
          [("--dist-cut", float, 3.5), ("--ang-cut", float, 120.0)]),
         ("boundwrap", "bound/wrap/shell/non-shell waters per frame",
          [("--cutoff", float, 4.0), ("--cache", str, "")]),
+        ("voronoi", "Voronoi volume, area and asphericity per water",
+         [("--engine", str, "auto")]),
     ]:
         p = sub.add_parser(name, help=helptext)
         _add_common(p)
@@ -96,6 +99,18 @@ def main(argv=None):
                    for k, v in zip(("bound", "wrap", "shell", "nonshell"), frame)},
             )
         print(json.dumps({"sizes_per_frame": [[len(x) for x in frame] for frame in res]}))
+        return 0
+
+    if args.cmd == "voronoi":
+        from waterorderlib_tpu_torch.drivers.voronoi_driver import voronoi_calc
+
+        avg_v, var_v, avg_a, var_a, avg_e, var_e = voronoi_calc(
+            args.top, args.traj, wat_res=args.wat_res, stride=args.stride,
+            output_dir=args.output_dir, engine=args.engine,
+            chunk_frames=args.chunk_frames or None, mesh=args.mesh or None, device=args.device,
+        )
+        print(json.dumps({"avgVol": avg_v[0].tolist(), "avgArea": avg_a[0].tolist(),
+                          "avgEta": avg_e[0].tolist()}))
         return 0
 
     from waterorderlib_tpu_torch.drivers import orderparams

@@ -1,0 +1,178 @@
+"""Voronoi volume driver (port of waterorderlib_tpu.drivers.voronoi_driver,
+its `voronoiCalc` half): per-water Voronoi volume, area and asphericity
+(orderParam_lib.py:964-1111).
+
+engine="device" runs the certified device cells
+(surface/voronoi_device.py) on float32 coordinates, frames batched in
+chunks; engine="host" runs the float64 Qhull tessellation
+(surface/voronoi.py) frame by frame. Statistics, histograms and the
+bootstrap are host numpy, as in the JAX package. `stage_times()`
+(core/clock.py) times the named steps of a call made inside it.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end
+from waterorderlib_tpu_torch.drivers.orderparams import _not_ported, _resolve_system, _save_hist
+from waterorderlib_tpu_torch.stats import blocks
+from waterorderlib_tpu_torch.utils import logging as _logging_mod
+
+# point count from which "auto" takes the device cells on a CUDA device;
+# below it, and on the CPU, the host Qhull tessellation (exact in float64,
+# and there the clip builder's plain PyTorch loses to Qhull)
+_DEVICE_MIN_POINTS = 2048
+
+
+def _pick_engine(engine: str, n_points: int, device) -> str:
+    if engine == "auto":
+        cuda = resolve_device(device).type == "cuda"
+        return "device" if cuda and n_points >= _DEVICE_MIN_POINTS else "host"
+    if engine not in ("host", "device"):
+        raise ValueError(f"engine must be auto|host|device, got {engine!r}")
+    return engine
+
+
+def _log_engine_once(driver: str, engine: str, extra: str = ""):
+    _logging_mod.log_once(
+        (driver, engine), "%s: voronoi engine=%s%s", driver, engine, extra
+    )
+
+
+def _masked_stats(vals):
+    vals = vals[~np.isinf(vals)]
+    if len(vals) == 0:
+        return np.nan, np.nan, vals
+    return float(np.mean(vals)), float(np.var(vals)), vals
+
+
+def voronoi_calc(
+    top_file,
+    traj_file,
+    sub_inds=None,
+    n_pops: int = 0,
+    wat_res: str = "WAT",
+    stride: int = 1,
+    output_dir: str = ".",
+    seed: int | None = 0,
+    engine: str = "auto",
+    mesh=None,
+    chunk_frames: int | None = None,
+    device="cuda",
+):
+    """Per-water Voronoi volume/area/asphericity eta = A^3/(36 pi V^2)
+    (orderParam_lib.py:964-1111). Returns (avgVol, varVol, avgArea, varArea,
+    avgEta, varEta), each [means (P+1,), CIs (P+1,)]; writes
+    {Vol,Area,Eta}Distribution_j.txt.
+
+    engine: "host" = Qhull tessellation (float64-exact); "device" =
+    certified cells on `device` with the escalation ladder and a per-atom
+    host close; "auto" = device on a CUDA device at >= 2048 points, else
+    host. The device engine batches frames in chunks of `chunk_frames`
+    (default min(F, 16)): one search launch and one clip build for tier 1
+    of a chunk, one launch per escalation tier; a single frame without
+    chunk_frames takes the per-frame hybrid."""
+    _not_ported(mesh)
+    dev = resolve_device(device)
+    top, traj = _resolve_system(top_file, traj_file, stride)
+    wat_inds, _, _ = top.get_wat_inds(wat_res)
+    sol_inds, *_ = top.get_sol_inds(wat_res)
+    heavy = np.concatenate([wat_inds, sol_inds])
+    F = traj.n_frames
+    nw = len(wat_inds)
+    row_of_wat = {int(w): i for i, w in enumerate(wat_inds)}
+    eng = _pick_engine(engine, len(heavy), dev)
+    _log_engine_once("voronoi_calc", eng)
+    vol_b = area_b = None
+    if eng == "device":
+        from waterorderlib_tpu_torch.surface.voronoi_device import (
+            voronoi_volumes_hybrid,
+            voronoi_volumes_hybrid_frames,
+        )
+
+        if F > 1 or chunk_frames is not None:
+            cf = int(chunk_frames) if chunk_frames else min(F, 16)
+            vol_b = np.zeros((F, nw))
+            area_b = np.zeros((F, nw))
+            n_cert_tot = 0
+            for c0 in range(0, F, cf):
+                c1 = min(c0 + cf, F)
+                pos_b = np.asarray(traj.positions[c0:c1][:, heavy], np.float32)
+                box_ls = np.asarray(traj.boxes[c0:c1, 0], np.float64)
+                stage_end("host gather")
+                vol_b[c0:c1], area_b[c0:c1], n_c = voronoi_volumes_hybrid_frames(
+                    pos_b, box_ls, nw, device=dev
+                )
+                n_cert_tot += int(n_c)
+            _log_engine_once(
+                "voronoi_calc.cert", "device",
+                f" ({n_cert_tot}/{F * nw} cells device-certified, frames "
+                f"batched in chunks of {cf})",
+            )
+
+    stats = {k: np.zeros((F, n_pops + 1)) for k in
+             ("avgV", "varV", "avgA", "varA", "avgE", "varE")}
+    val_lists = {k: [[] for _ in range(n_pops + 1)] for k in ("V", "A", "E")}
+
+    for t in range(F):
+        pos = traj.positions[t].astype(np.float64)
+        box_l = float(traj.boxes[t][0])
+        if vol_b is not None:
+            vol, area = vol_b[t], area_b[t]
+        elif eng == "device":
+            vol, area, n_cert = voronoi_volumes_hybrid(
+                pos[heavy].astype(np.float32), box_l, nw, device=dev)
+            stage_end("host close")
+            if t == 0:
+                _log_engine_once(
+                    "voronoi_calc.cert", "device",
+                    f" ({n_cert}/{nw} cells device-certified on frame 0)",
+                )
+        else:
+            from waterorderlib_tpu_torch.surface.voronoi import voronoi_volumes
+
+            vol, area = voronoi_volumes(pos[heavy], box_l, nw)
+            stage_end("host tessellation")
+        eta = np.where(
+            np.isinf(vol) | np.isinf(area), np.inf,
+            area**3 / (36.0 * np.pi * np.maximum(vol, 1e-300) ** 2),
+        )
+        pops = [np.arange(nw)]
+        if sub_inds is not None:
+            pops += [np.array([row_of_wat[int(a)] for a in sub_inds[t][p]], int)
+                     for p in range(n_pops)]
+        for j, rows in enumerate(pops):
+            m_v, v_v, vv = _masked_stats(vol[rows])
+            m_a, v_a, aa = _masked_stats(area[rows])
+            m_e, v_e, ee = _masked_stats(eta[rows])
+            stats["avgV"][t, j], stats["varV"][t, j] = m_v, v_v
+            stats["avgA"][t, j], stats["varA"][t, j] = m_a, v_a
+            stats["avgE"][t, j], stats["varE"][t, j] = m_e, v_e
+            val_lists["V"][j].append(vv)
+            val_lists["A"][j].append(aa)
+            val_lists["E"][j].append(ee)
+    stage_end("statistics and histograms")
+
+    for j in range(n_pops + 1):
+        for key, fname, rng, header in (
+            ("V", f"VolDistribution_{j}.txt", (10.0, 60.0), "water volume (A^3)    frequency"),
+            ("A", f"AreaDistribution_{j}.txt", (10.0, 100.0), "water area (A^2)    frequency"),
+            ("E", f"EtaDistribution_{j}.txt", (1.0, 2.5), "asphericity    frequency"),
+        ):
+            vals = np.concatenate(val_lists[key][j]) if val_lists[key][j] else np.zeros(0)
+            hist, _ = np.histogram(vals, bins=500, range=rng)
+            _save_hist(os.path.join(output_dir, fname), hist, 500, rng[0], rng[1], header)
+    stage_end("savetxt")
+
+    def mc(key):
+        arr = stats[key]
+        means = np.nanmean(arr, axis=0)
+        cis = np.array([blocks.block_average(arr[:, j], seed=seed) for j in range(n_pops + 1)])
+        return [means, cis]
+
+    res = mc("avgV"), mc("varV"), mc("avgA"), mc("varA"), mc("avgE"), mc("varE")
+    stage_end("bootstrap CIs")
+    return res

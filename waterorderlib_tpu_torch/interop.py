@@ -8,10 +8,15 @@ into the port's `SlabPrep`, so the port's kernel contracts can be fed the
 JAX prep and kernel parity checked apart from prep parity, and
 `coords_from_jax` carries a coordinate array such as LSI's raw layout;
 `neighbor_list_from_jax` carries a fixed-K neighbor list, so the port's
-occlusion kernel can be fed the JAX package's occluder slots.
+occlusion kernel can be fed the JAX package's occluder slots;
+`voronoi_candidates_from_jax` carries a Voronoi tier's candidate payload,
+so the port's clip builder and host close can be fed the JAX package's
+candidates apart from its search.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -55,4 +60,31 @@ def neighbor_list_from_jax(nl, device) -> NeighborList:
         idx=torch.tensor(np.asarray(nl.idx, np.int32), device=device),
         valid=torch.tensor(np.asarray(nl.valid, bool), device=device),
         count=torch.tensor(np.asarray(nl.count, np.int32), device=device),
+    )
+
+
+class VoronoiCandidates(NamedTuple):
+    """A Voronoi search's payload per center row: rel_all (R, K, 3) the
+    candidates relative to the center (nearest first), valid (R, K) bool,
+    nbr_idx (R, K) int32 ids in the full mirrored set, nbr_dist (R, K)."""
+
+    rel_all: torch.Tensor
+    valid: torch.Tensor
+    nbr_idx: torch.Tensor
+    nbr_dist: torch.Tensor
+
+
+def voronoi_candidates_from_jax(rel_all, valid, nbr_idx, nbr_dist, device) -> VoronoiCandidates:
+    """The port's tensors for a JAX Voronoi tier's candidate payload, given
+    as numpy arrays (`rel_all` as `_cells_blocked` forms it, ext[nbr_idx]
+    - center, and the tier's nbr_valid, nbr_idx, nbr_dist). rel_all and
+    nbr_dist keep their dtype (float32 or float64), so a float64 payload
+    feeds the float64 builder; ids are int32, flags bool."""
+    rel = np.ascontiguousarray(rel_all)
+    fdtype = torch.float64 if rel.dtype == np.float64 else torch.float32
+    return VoronoiCandidates(
+        rel_all=torch.tensor(rel, dtype=fdtype, device=device),
+        valid=torch.tensor(np.asarray(valid, bool), device=device),
+        nbr_idx=torch.tensor(np.asarray(nbr_idx, np.int32), device=device),
+        nbr_dist=torch.tensor(np.asarray(nbr_dist), dtype=fdtype, device=device),
     )
