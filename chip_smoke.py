@@ -98,7 +98,31 @@ Phases (each raises on failure; nothing is caught):
    to one chunk; `voronoi_calc` at 2,048 waters x 16 frames (tier 1 on
    the window form); each form's time at its main-path launch beside its
    bound, its plain version and `torch.topk` on the same distances; a warm
-   `voronoi_calc` on the stage clock.
+   `voronoi_calc` on the stage clock;
+11. the fused cell kernel and the Voronoi contacts slice
+   (`_voronoi_cells_phases`, `_voronoi_contacts_phases`):
+   `voronoi_cells.cu` against its plain version (flags and face vertex
+   counts equal, moments within 1e-6 relative) at tier 1 of a 16-frame
+   chunk of 12,294 points (196,608 rows at (32, 64), cell-grid
+   candidates), on a 2,048-row subset at (40, 96), on the 6^3 cubic lattice
+   (the tangency test dedups the interior rows; every cell certified at
+   a^3) and with dedup "always" (the plain version is the clip builder);
+   its time beside its bound and plain version; tier-1 cells certified by
+   both builders within 1e-5 but where the clip builder's dedup merged a
+   small face (named, both within 1.5e-3 of the host cell in float64);
+   `voronoi_volumes_hybrid_frames` on the chunk under cell_impl "pallas"
+   (the kernel serves tier 1 alone, one launch) and "clip", against each
+   other and Qhull, and a warm call of each on the stage clock;
+   `voronoi_contacts_hybrid_frames` at 12,294 points x 16
+   frames x rows 0-511 under both, against each other, frames 0-1 against
+   the host Qhull contacts in float64 (entries within 5e-2, or once the
+   doubling quirk's factor is undone, on at most 1% of the nonzero ones)
+   and frames 0 and 1 alone against the batch; `contact_area_calc` and
+   `hydrated_volume_calc` (engine "device") at 12,288 waters + 24 solute
+   atoms x 16 frames, their solute rows and means on frames 0-1 against
+   the host engine (solute atoms stored outside the box are mirrored
+   otherwise by the host engine: named, and held to their own float64
+   cells), and a warm call of each on the stage clock.
 scipy.spatial is imported right after the build (the Voronoi host close
 needs it). Near the end, a line says whether scipy imports on this
 machine, and one sums up ptxas's registers and spills.
@@ -110,7 +134,7 @@ times per frame (the Willard, SASA and Voronoi kernels and
 `qtet_window_hist`: per call) of the kernel, the plain version and the
 bound, "bound_by"; "library_ms" is `torch.topk` on the same distances for
 the Voronoi search, null elsewhere: no single PyTorch call computes the
-other functions), and
+other functions, the fused Voronoi cells included), and
 the card's name and power limit. Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero and
 prints no result. Imports nothing of JAX and nothing of the JAX package.
@@ -173,7 +197,8 @@ SOURCES = {"qtet_window": "waterorderlib_tpu_torch/ops/cuda/csrc/qtet_window.cu"
            "sasa_topk": "waterorderlib_tpu_torch/ops/cuda/csrc/sasa.cu",
            "sasa_brute": "waterorderlib_tpu_torch/ops/cuda/csrc/sasa.cu",
            "voronoi_window_topk": "waterorderlib_tpu_torch/ops/cuda/csrc/voronoi_topk.cu",
-           "voronoi_cellgrid_topk": "waterorderlib_tpu_torch/ops/cuda/csrc/voronoi_topk.cu"}
+           "voronoi_cellgrid_topk": "waterorderlib_tpu_torch/ops/cuda/csrc/voronoi_topk.cu",
+           "voronoi_cells": "waterorderlib_tpu_torch/ops/cuda/csrc/voronoi_cells.cu"}
 REPLACES = {"qtet_window": "waterorderlib_tpu/ops/pallas/qtet2.py:111, qtet_kernel.py:286, "
                            "qtet_sorted.py:192, :315",
             "angles_window": "waterorderlib_tpu/ops/pallas/angles_kernel.py:159",
@@ -188,7 +213,8 @@ REPLACES = {"qtet_window": "waterorderlib_tpu/ops/pallas/qtet2.py:111, qtet_kern
             "sasa_topk": "waterorderlib_tpu/ops/pallas/sasa_kernel.py:81",
             "sasa_brute": "waterorderlib_tpu/ops/pallas/sasa_kernel.py:81",
             "voronoi_window_topk": "waterorderlib_tpu/ops/pallas/voronoi_topk.py:112",
-            "voronoi_cellgrid_topk": "waterorderlib_tpu/ops/pallas/voronoi_topk.py:218"}
+            "voronoi_cellgrid_topk": "waterorderlib_tpu/ops/pallas/voronoi_topk.py:218",
+            "voronoi_cells": "waterorderlib_tpu/ops/pallas/voronoi_cells.py:352"}
 # the H-bond slice: hb_calc's default cuts; a solute with one O acceptor,
 # one O-H donor, one N acceptor and two N-H donors, so that each of the nine
 # acceptor x donor sets is non-empty; the slab tier's size
@@ -259,6 +285,32 @@ VOR_REF_TOL, VOR_MEAN_TOL = 1.5e-3, 5e-3
 # Lanes counted from the data: a window's every candidate; a row's 27 cells'
 # members (not their empty slots)
 VOR_LANE_FLOPS = 9
+# the Voronoi contacts slice: the fused cell kernel against its plain
+# version (relative, each moment: the same operations), on tier 1 of a
+# 16-frame chunk at 12,294 points, a 2,048-row subset at the wide tier (40,
+# 96) and the 6^3 cubic lattice; volumes and contacts under cell_impl
+# "pallas" against "clip"; contacts at scripts/perf_round5_tpu.py's
+# production shape (512 solute rows x 16 frames); the contact drivers on 24
+# solute atoms
+VOR_CHUNK = 16  # voronoi_calc's chunk of frames
+VOR_CELLS_TOL = 1e-6
+VOR_IMPL_TOL = 1e-5  # cells certified by both builders
+VOR_CONTACT_ROWS = 512
+VOR_CONTACT_TOL = 5e-2  # a contact entry against Qhull, or once the quirk's factor 2 is undone
+VOR_CONTACT_SOLUTE = ["C", "C", "O", "C", "N", "C"] * 4
+# float32 operations the fused cell kernel must do, counted from its code:
+# per candidate 9 (|r|^2, s, |r|, and the thresholds eps |r| and eps s, which
+# depend on the plane alone); per pair 64 (line, point, unit direction,
+# |q|), per (pair, build plane) 22 (two dot products, the pair's thresholds
+# from the plane's, the division, the interval), per pair 26 after the clip
+# (endpoints, their lengths, r_cell); per (edge, check plane) 21; per (face,
+# slot) 70 (edge test, orientation, the triangle's vector area, the sums);
+# per comparison of two valid edges of a face 9 (the dedup's first endpoint
+# test). Counted from the data: the edges (half a row's face vertex
+# counts) and the dedup's comparisons, C(n, 2) over each face's n kept edges
+# on the boundary rows (the tangent rows and the dropped edges not counted)
+CELL_CAND_FLOPS, CELL_PAIR_FLOPS, CELL_PLANE_FLOPS, CELL_POST_FLOPS = 9, 64, 22, 26
+CELL_CHECK_FLOPS, CELL_SLOT_FLOPS, CELL_DEDUP_FLOPS = 21, 70, 9
 
 
 def _check(cond: bool, what: str) -> None:
@@ -1530,7 +1582,8 @@ def _vor_drive(label, kernels, fn):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ran = {name: kernels[name][0].launches for name in ("voronoi_window_topk",
-                                                         "voronoi_cellgrid_topk")}
+                                                         "voronoi_cellgrid_topk", "voronoi_cells")
+           if name in kernels}
     plain = sum(p.calls for _, p in kernels.values())
     tiers = {str(k): dict(v) for k, v in vd.tier_stats.items()}
     print(f"[slice] {label}: launches {ran}, plain calls {plain}, wall {wall:.3f} s", flush=True)
@@ -1684,6 +1737,408 @@ def _voronoi_phases(card, kernels, errs, launches, times):
                                                    engine="device", device="cuda"))
 
 
+def _cells_args(vd, pb, bl, k, ks, n_centers=None, rows=None):
+    """The fused cell kernel's arguments as the main path makes them
+    (`_search_rows`, then `_fused_inputs`) for tier 1 of a frame batch pb
+    (F, P, 3): the centers pb[:, :n_centers] (or pb[:, rows]) on the full
+    mirror set, candidates from the cell-grid form (the full scan below the
+    grid's cut). Returns ((rel_parked, valid, is_boundary, k), d_far (R,),
+    grid)."""
+    ext = vd.mirror_points_device(pb, bl)
+    centers = pb[:, :n_centers] if rows is None else pb[:, rows]
+    cg = vd._suggest_cellgrid(pb.shape[1], float(bl.min()), ks)
+    (dist, idx, valid, _), _, rel = vd._search_rows(centers, ext, ks, 256, cg=cg, box_l=bl)
+    R = centers.shape[0] * centers.shape[1]
+    inputs = vd._fused_inputs(rel, valid.reshape(R, ks), idx.reshape(R, ks), k, ext.shape[1])
+    return (*inputs, k), dist.reshape(R, ks)[:, -1], cg
+
+
+def _cells_cmp(label, args, mode, errs):
+    """The fused kernel against its plain version on the same inputs: flags
+    and face vertex counts equal on every row, vol, area, r_cell and
+    face_area within VOR_CELLS_TOL relative; rows beyond it are named.
+    Returns the kernel's output."""
+    import torch
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_cells as vcells
+
+    got = vcells.voronoi_cells_fused(*args, 1e-4, mode)
+    want = vcells.voronoi_cells_fused_plain(*args, 1e-4, mode)
+    torch.cuda.synchronize()
+    same = all(torch.equal(got[key], want[key])
+               for key in ("ok_shape", "extra_cut", "neg_face", "face_nverts"))
+    err, bad = 0.0, torch.zeros(args[0].shape[0], dtype=torch.bool, device=args[0].device)
+    for key in ("vol", "area", "r_cell", "face_area"):
+        d = (got[key] - want[key]).abs()
+        err = max(err, float(d.max()))
+        rel = d / want[key].abs().clamp(min=1e-30)
+        bad |= (rel > VOR_CELLS_TOL).reshape(rel.shape[0], -1).any(-1)
+    rows = torch.nonzero(bad)[:, 0].tolist()
+    n_bound = int(args[2].sum())
+    print(f"[kernel] voronoi_cells {label}, dedup {mode}: {args[0].shape[0]} rows ({n_bound} "
+          f"boundary), ok {int(got['ok_shape'].sum())}, extra_cut {int(got['extra_cut'].sum())}; "
+          f"flags and face_nverts equal: {same}; moments max|d|={err:.3e}, rows beyond "
+          f"{VOR_CELLS_TOL} relative: {len(rows)}", flush=True)
+    for r in rows[:20]:
+        print(f"[kernel] voronoi_cells row {r}: vol {float(got['vol'][r])!r} / "
+              f"{float(want['vol'][r])!r}, area {float(got['area'][r])!r} / "
+              f"{float(want['area'][r])!r}, r_cell {float(got['r_cell'][r])!r} / "
+              f"{float(want['r_cell'][r])!r}", flush=True)
+    _check(same and not rows, f"voronoi_cells {label}: differs from the plain version")
+    errs["voronoi_cells"].append(err)
+    return got
+
+
+def _cells_bound_ms(args, got):
+    """Least time of one fused-cell launch: the operations its code must do
+    on these rows (the CELL_* counts; edges and dedup comparisons from the
+    data) over the float32 peak, or the bytes (rel, valid and the flag read
+    once, the outputs written once) over the memory rate."""
+    rel, _, isb, k = args
+    R, ks = rel.shape[0], rel.shape[1]
+    P = k * (k - 1) // 2
+    nv = got["face_nverts"].double()
+    edges = float(nv.sum()) / 2.0
+    compares = float((nv * (nv - 1) / 2)[isb].sum())
+    ops = (R * (ks * CELL_CAND_FLOPS + P * (CELL_PAIR_FLOPS + k * CELL_PLANE_FLOPS + CELL_POST_FLOPS)
+                + k * (k - 1) * CELL_SLOT_FLOPS)
+           + edges * (ks - k) * CELL_CHECK_FLOPS + compares * CELL_DEDUP_FLOPS)
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = R * (ks * 13 + 1 + 19 + 8 * k) / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _builders_agree(args, d_far, got, clip):
+    """Tier-1 cells certified by both the fused rule (dedup on boundary and
+    tangent rows) and the clip builder (dedup everywhere): vol and area
+    within VOR_IMPL_TOL, except on rows where the two keep different faces
+    (the clip builder's dedup merged the edges of a face smaller than its
+    tolerance). Those are named, at most 0.1% of the rows, and both values
+    lie within VOR_REF_TOL of the row's cell from the same candidates on the
+    host in float64."""
+    import numpy as np
+    import torch
+    from waterorderlib_tpu_torch.surface import voronoi_device as vd
+
+    cert_k = got["ok_shape"] & (d_far >= 2.0 * got["r_cell"])
+    cert_c = clip["ok_shape"] & (d_far >= 2.0 * clip["r_cell"])
+    both = cert_k & cert_c
+    rel = torch.maximum(*((got[key] - clip[key]).abs() / clip[key].abs() for key in ("vol", "area")))
+    beyond = both & (rel > VOR_IMPL_TOL)
+    faces_differ = (got["face_nverts"] != clip["face_nverts"]).any(-1)
+    gap = float(rel[both & ~beyond].max())
+    rows = torch.nonzero(beyond)[:, 0].tolist()
+    print(f"[kernel] voronoi_cells against the clip builder at tier 1: certified "
+          f"{int(cert_k.sum())} / {int(cert_c.sum())} of {args[0].shape[0]} rows, by both "
+          f"{int(both.sum())}; their vol and area within {gap:.3e} relative (limit {VOR_IMPL_TOL}) "
+          f"but on {len(rows)} rows, where the faces differ", flush=True)
+    worst = 0.0
+    for n, r in enumerate(rows):
+        cand = args[0][r][args[1][r]].double().cpu().numpy()
+        vh = vd._host_cell(cand)[0]
+        vk, vc = float(got["vol"][r]), float(clip["vol"][r])
+        worst = max(worst, abs(vk - vh) / vh, abs(vc - vh) / vh)
+        faces = (got["face_nverts"][r] > 0).sum(), (clip["face_nverts"][r] > 0).sum()
+        if n < 10:
+            print(f"[kernel] row {r}: vol fused {vk:.6f}, clip {vc:.6f}, host float64 {vh:.6f}; "
+                  f"faces {int(faces[0])} / {int(faces[1])}", flush=True)
+    print(f"[kernel] on all {len(rows)} of these rows, both builders within {worst:.3e} of "
+          f"the host cell (limit {VOR_REF_TOL})", flush=True)
+    _check(int(both.sum()) >= 0.8 * args[0].shape[0] and not bool((beyond & ~faces_differ).any())
+           and len(rows) <= 1e-3 * int(both.sum()) and worst <= VOR_REF_TOL,
+           "voronoi_cells: co-certified cells differ from the clip builder")
+
+
+def _voronoi_cells_phases(card, kernels, errs, launches, times):
+    """The fused cell kernel (csrc/voronoi_cells.cu) against its plain
+    version at tier 1 of a 16-frame chunk of 12,294 points (196,608 rows at
+    (32, 64), cell-grid candidates), on a 2,048-row subset at (40, 96), on
+    the 6^3 cubic lattice (interior rows carry no boundary flag: the
+    tangency test must dedup them, and every cell certify at a^3), and with
+    dedup "always" against the clip builder; its time beside its bound and
+    plain version; tier-1 cells certified by both builders against each
+    other; voronoi_volumes_hybrid_frames(cell_impl="pallas") on the chunk
+    against "clip" and, frames 0-1, Qhull in float64; a warm call of each
+    on the stage clock."""
+    import numpy as np
+    import torch
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_cells as vcells
+    from waterorderlib_tpu_torch.surface import voronoi_device as vd
+    from waterorderlib_tpu_torch.surface.voronoi import voronoi_volumes
+
+    dev = torch.device("cuda")
+    kk, kp = vcells.voronoi_cells_fused, vcells.voronoi_cells_fused_plain
+    kernels["voronoi_cells"] = (kk, kp)
+    _, traj, heavy, nw = _vor_system(VOR_N, VOR_CHUNK, 0, VOR_SOLUTE)
+    pb = torch.as_tensor(traj.positions[:, heavy], device=dev)
+    bl = torch.as_tensor(traj.boxes[:, 0], device=dev)
+    args, d_far, cg = _cells_args(vd, pb, bl, 32, 64, n_centers=nw)
+    got = _cells_cmp(f"tier 1 of a {VOR_CHUNK}-frame chunk at {len(heavy)} points (32, 64), grid {cg}",
+                     args, "auto", errs)
+    ms = _ms(kk, (*args, 1e-4), 5)
+    plain_ms = _ms(kp, (*args, 1e-4), 1)
+    bound, bound_by = _cells_bound_ms(args, got)
+    times["voronoi_cells"] = (ms, plain_ms, bound, bound_by, None)
+    print(f"[time] voronoi_cells, tier 1 of a {VOR_CHUNK}-frame chunk ({args[0].shape[0]} rows, (32, 64), "
+          f"{int(args[2].sum())} boundary rows, {float(got['face_nverts'].sum()) / 2:.0f} edges): "
+          f"kernel {ms:.5f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by}); no "
+          f"library call computes it; {card}", flush=True)
+    # tier-1 cells certified by both builders
+    _builders_agree(args, d_far, got, vd._clip_cells(args[0], args[1], 32, 1e-4))
+    # dedup "always": the plain version is the clip builder itself
+    sub = tuple(a[:VOR_SUBSET] if torch.is_tensor(a) else a for a in args)
+    _cells_cmp(f"{VOR_SUBSET} rows of tier 1 (the plain version: the clip builder)", sub,
+               "always", errs)
+    del args, d_far, got, sub
+    rs = np.random.RandomState(4)
+    rows = torch.as_tensor(rs.choice(nw, VOR_SUBSET, replace=False), device=dev)
+    wide, _, cgw = _cells_args(vd, pb[:1], bl[:1], 40, 96, rows=rows)
+    _cells_cmp(f"{VOR_SUBSET}-row subset at (40, 96), grid {cgw}", wide, "auto", errs)
+    # the 6^3 cubic lattice: degenerate vertices everywhere
+    a, ng = 3.0, 6
+    g = np.arange(ng) * a + a / 2.0
+    lat = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3).astype(np.float32)
+    lt = torch.as_tensor(lat, device=dev)[None]
+    largs, ld_far, _ = _cells_args(vd, lt, torch.tensor([ng * a], device=dev), 32, 64,
+                                   n_centers=len(lat))
+    lat_k = _cells_cmp(f"the {ng}^3 cubic lattice", largs, "auto", errs)
+    lat_a = kk(*largs, 1e-4, "always")
+    cert = lat_k["ok_shape"] & (ld_far >= 2.0 * lat_k["r_cell"])
+    vgap = float(((lat_k["vol"] - a**3).abs() / a**3).max())
+    interior = int((~largs[2]).sum())
+    print(f"[kernel] voronoi_cells on the cubic lattice: {interior} rows without the boundary "
+          f"flag; certified {int(cert.sum())} of {len(lat)}; volumes within {vgap:.3e} of a^3; "
+          f"equal to dedup always: {torch.equal(lat_k['vol'], lat_a['vol'])}", flush=True)
+    _check(interior >= 8 and int(cert.sum()) == len(lat) and vgap <= 1e-4
+           and torch.equal(lat_k["vol"], lat_a["vol"]),
+           "voronoi_cells: the cubic lattice was not deduped by the tangency test")
+    del wide, largs, lat_k, lat_a
+    torch.cuda.empty_cache()
+
+    # the volumes frame batch under both builders
+    pos16 = traj.positions[:, heavy]
+    box16 = traj.boxes[:, 0].astype(np.float64)
+    res = {}
+    for impl in ("pallas", "clip"):
+        res[impl], ran, tiers, wall = _vor_drive(
+            f"voronoi_volumes_hybrid_frames {len(heavy)} points x {VOR_CHUNK} frames, cell_impl {impl}",
+            kernels, lambda: vd.voronoi_volumes_hybrid_frames(pos16, box16, nw, cell_impl=impl,
+                                                              device="cuda"))
+        cells = {k: v.get("cells") for k, v in tiers.items() if k != "host"}
+        if impl == "pallas":
+            _check(cells[(32, 64)] == "pallas" and ran["voronoi_cells"] == 1
+                   and all(v == "clip" for k, v in cells.items() if k != (32, 64)),
+                   f"cell_impl pallas: the kernel did not serve tier 1 alone: {cells}, {ran}")
+        else:
+            _check(ran["voronoi_cells"] == 0 and set(cells.values()) == {"clip"},
+                   f"cell_impl clip launched the fused kernel: {ran}")
+    (vp, ap, np_), (vc_, ac_, nc_) = res["pallas"], res["clip"]
+    gap = max(float(np.max(np.abs(vp - vc_) / vc_)), float(np.max(np.abs(ap - ac_) / ac_)))
+    worst = 0.0
+    for t in range(2):
+        vh, ah = voronoi_volumes(pos16[t].astype(np.float64), float(box16[t]), nw)
+        worst = max(worst, float(np.max(np.abs(vp[t] - vh) / vh)),
+                    float(np.max(np.abs(ap[t] - ah) / ah)))
+    print(f"[slice] voronoi_volumes_hybrid_frames pallas against clip: certified {np_} / {nc_} of "
+          f"{16 * nw}; every cell within {gap:.3e} relative; frames 0-1 against Qhull float64: "
+          f"{worst:.3e} (limit {VOR_REF_TOL}); {card}", flush=True)
+    _check(gap <= VOR_REF_TOL and worst <= VOR_REF_TOL,
+           "cell_impl pallas: volumes differ from clip or Qhull beyond the float32 band")
+    for impl in ("pallas", "clip"):
+        _stages(f"voronoi_volumes_hybrid_frames, cell_impl {impl}",
+                lambda d: vd.voronoi_volumes_hybrid_frames(pos16, box16, nw, cell_impl=impl,
+                                                           device="cuda"))
+    del pb, bl
+    torch.cuda.empty_cache()
+
+
+def _quirk_flips(dev, host):
+    """Contact entries beyond VOR_CONTACT_TOL of Qhull's: each must be a flip
+    of the reference's doubling quirk (a face's sliver 4th vertex seen on
+    one side only), within VOR_CONTACT_TOL once the factor 2 is undone (the
+    sliver's own area stays in the difference)."""
+    import numpy as np
+
+    return bool(np.all((np.abs(2.0 * dev - host) <= VOR_CONTACT_TOL)
+                       | (np.abs(dev - 2.0 * host) <= VOR_CONTACT_TOL)))
+
+
+def _driver_means(name, res):
+    """The means a contact driver returns: contact_area_calc's five total
+    and four fraction means, hydrated_volume_calc's volume and area."""
+    import numpy as np
+
+    if name == "contact_area_calc":
+        return np.asarray(list(res[0]) + list(res[2]), np.float64)
+    return np.asarray([res[0][0], res[1][0]], np.float64)
+
+
+def _voronoi_contacts_phases(card, kernels, errs, launches):
+    """The Voronoi contacts slice: voronoi_contacts_hybrid_frames at 12,294
+    points x 16 frames with rows 0-511 (scripts/perf_round5_tpu.py's
+    production shape) under cell_impl "pallas" (tier 1 on the fused kernel,
+    one launch) and "clip", against each other on every frame, frames 0-1
+    against the host Qhull contacts in float64, frames 0 and 1 alone equal
+    to the batch; contact_area_calc and hydrated_volume_calc
+    (engine="device") at 12,288 waters + 24 solute atoms x 16 frames, frames
+    0-1 against engine="host", and a warm call of each on the stage clock."""
+    import numpy as np
+    from waterorderlib_tpu_torch.drivers.voronoi_driver import (
+        contact_area_calc,
+        hydrated_volume_calc,
+    )
+    from waterorderlib_tpu_torch.io.synthetic import make_water_box
+    from waterorderlib_tpu_torch.surface import voronoi_device as vd
+    from waterorderlib_tpu_torch.surface.voronoi import voronoi_contacts
+
+    _, traj, heavy, _ = _vor_system(VOR_N, VOR_CHUNK, 0, VOR_SOLUTE)
+    pos = traj.positions[:, heavy]
+    box = traj.boxes[:, 0].astype(np.float64)
+    num = len(heavy)
+    sel = np.arange(VOR_CONTACT_ROWS)
+
+    def run(impl, frames=slice(None)):
+        # keep the computed rows of each frame's dense matrix, not the matrix
+        return [(c[sel].copy(), aa[0, sel].copy(), wa[0, sel].copy(), av[0, sel].copy(), n)
+                for c, aa, wa, av, n in vd.voronoi_contacts_hybrid_frames(
+                    pos[frames], box[frames], num, rows=sel, cell_impl=impl, device="cuda")]
+
+    res = {}
+    for impl in ("pallas", "clip"):
+        res[impl], ran, tiers, wall = _vor_drive(
+            f"voronoi_contacts_hybrid_frames {num} points x {VOR_CHUNK} frames, rows {VOR_CONTACT_ROWS}, "
+            f"cell_impl {impl}", kernels, lambda: run(impl))
+        cells = {k: v.get("cells") for k, v in tiers.items() if k != "host"}
+        if impl == "pallas":
+            launches["voronoi_cells"] = ran["voronoi_cells"]
+            _check(cells[(32, 64)] == "pallas" and ran["voronoi_cells"] == 1
+                   and ran["voronoi_cellgrid_topk"] >= 1,
+                   f"contacts, cell_impl pallas: tier 1 not on the fused kernel: {cells}, {ran}")
+        else:
+            _check(ran["voronoi_cells"] == 0, "contacts, cell_impl clip launched the fused kernel")
+        print(f"[slice] contacts {impl}: certified per tier "
+              + ", ".join(f"{k}: {v.get('certified', 0)} of {v['rows']} ({v['form']}, "
+                          f"{v.get('cells')})" for k, v in tiers.items() if k != "host")
+              + f"; host closes {tiers.get('host', {}).get('rows', 0)}; wall {wall:.3f} s; {card}",
+              flush=True)
+    # rows beyond VOR_IMPL_TOL: where the clip builder's dedup merged a small
+    # face (see _builders_agree); named, and held to the float32 band
+    n_rows, named, band, entry = 0, [], 0.0, 0.0
+    for t, ((cp, aap, wap, avp, _), (cc, aac, wac, avc, _)) in enumerate(
+            zip(res["pallas"], res["clip"])):
+        diff = np.maximum.reduce([np.max(np.abs(cp - cc), 1) / aac, np.abs(aap - aac) / aac,
+                                  np.abs(avp - avc) / avc, np.abs(wap - wac) / (4 * aac)])
+        n_rows += len(diff)
+        for r in np.where(diff > VOR_IMPL_TOL)[0]:
+            named.append((t, int(r)))
+            band = max(band, abs(aap[r] - aac[r]) / aac[r], abs(avp[r] - avc[r]) / avc[r])
+            entry = max(entry, float(np.max(np.abs(cp[r] - cc[r]))))
+    n_p = sum(r[4] for r in res["pallas"])
+    n_c = sum(r[4] for r in res["clip"])
+    print(f"[slice] contacts pallas against clip, {VOR_CHUNK} frames: certified {n_p} / {n_c}; "
+          f"rows whose entries, area or volume differ beyond {VOR_IMPL_TOL} of the cell: "
+          f"{len(named)} of {n_rows} {named[:20]}; there areas and volumes within {band:.3e} "
+          f"(limit {VOR_REF_TOL}), entries within {entry:.3e} (limit {VOR_CONTACT_TOL})",
+          flush=True)
+    _check(len(named) <= 1e-3 * n_rows and band <= VOR_REF_TOL and entry <= VOR_CONTACT_TOL,
+           "contacts: cell_impl pallas differs from clip")
+    worst_cell, flips, nonzero = 0.0, 0, 0
+    for t in range(2):
+        ch, aah, _, avh = voronoi_contacts(pos[t].astype(np.float64), float(box[t]), num)
+        cd, aad, _, avd, _ = res["pallas"][t]
+        worst_cell = max(worst_cell, float(np.max(np.abs(aad - aah[0, sel]) / aah[0, sel])),
+                         float(np.max(np.abs(avd - avh[0, sel]) / avh[0, sel])))
+        flip = np.abs(cd - ch[sel]) > VOR_CONTACT_TOL
+        _check(_quirk_flips(cd[flip], ch[sel][flip]),
+               f"contacts frame {t}: an entry differs from Qhull other than by the quirk factor")
+        flips += int(flip.sum())
+        nonzero += int((ch[sel] > 0).sum())
+        del ch
+    print(f"[slice] contacts frames 0-1 against Qhull float64: atom areas and volumes within "
+          f"{worst_cell:.3e} (limit {VOR_MEAN_TOL}); entries beyond {VOR_CONTACT_TOL}: {flips} "
+          f"of {nonzero} nonzero (limit 1%)", flush=True)
+    _check(worst_cell <= VOR_MEAN_TOL and flips <= 0.01 * nonzero,
+           "contacts differ from Qhull beyond the float32 band")
+    for t in range(2):
+        one = run("pallas", slice(t, t + 1))[0]
+        _check(all(np.array_equal(a, b) for a, b in zip(one, res["pallas"][t])),
+               f"contacts: frame {t} alone differs from the {VOR_CHUNK}-frame batch")
+    print(f"[slice] contacts: frames 0 and 1 alone equal the {VOR_CHUNK}-frame batch", flush=True)
+    del res
+
+    ctop, ctraj = make_water_box(VOR_N, n_frames=VOR_CHUNK, seed=0,
+                                  solute_elements=VOR_CONTACT_SOLUTE)
+    c_quirk, w_quirk = _rows_vs_host(ctop, ctraj)
+    drv = {}
+    for name, fn in (("contact_area_calc", contact_area_calc),
+                     ("hydrated_volume_calc", hydrated_volume_calc)):
+        drv[name], ran, tiers, wall = _vor_drive(
+            f"{name} {VOR_N} waters + {len(VOR_CONTACT_SOLUTE)} solute atoms x {VOR_CHUNK} frames "
+            f"(engine device)", kernels, lambda: fn(ctop, ctraj, engine="device", device="cuda"))
+        _check(ran["voronoi_cellgrid_topk"] >= 1, f"{name} did not run the search kernel")
+        print(f"[slice] {name}: {json.dumps(drv[name], default=lambda x: np.asarray(x).tolist())}",
+              flush=True)
+        dev2 = _driver_means(name, fn(ctop, ctraj[:2], engine="device", device="cuda"))
+        host2 = _driver_means(name, fn(ctop, ctraj[:2], engine="host", device="cuda"))
+        # the float32 band, and the quirk's flips of _rows_vs_host: a total
+        # sums halved entries; a fraction a / b moves by at most
+        # 2 (band a / b + quirk / b)
+        if name == "contact_area_calc":
+            tot = host2[0]
+            limit = np.concatenate([VOR_MEAN_TOL * np.abs(host2[:5]) + c_quirk,
+                                    2.0 * (VOR_MEAN_TOL * host2[5:] + c_quirk / tot)])
+        else:
+            limit = VOR_MEAN_TOL * np.abs(host2) + np.array([0.0, w_quirk])
+        gap = np.abs(dev2 - host2)
+        print(f"[slice] {name} frames 0-1: device {dev2.tolist()}, host {host2.tolist()}; gaps "
+              f"{gap.tolist()}, limits {limit.tolist()} ({VOR_MEAN_TOL} relative, plus the "
+              f"quirk's flips)", flush=True)
+        _check(bool(np.all(gap <= limit)), f"{name}: device and host engines differ")
+        _stages(name, lambda d: fn(ctop, ctraj, engine="device", device="cuda"))
+
+
+def _rows_vs_host(top, traj):
+    """The contact rows of the drivers' solute on frames 0-1, device against
+    the host engine (Qhull, float64): areas and volumes within VOR_MEAN_TOL,
+    entries by the JAX package's rule (within VOR_CONTACT_TOL, or off by the
+    doubling quirk's factor on at most 1% of the nonzero entries). Returns
+    the quirk's bound on the drivers' means, from the host's numbers alone
+    and averaged over the two frames: a flipped entry moves by its face's
+    polygon area, at most the host's entry there; the halved row sums move
+    by half of that, the exposed area by all of it."""
+    import numpy as np
+    from waterorderlib_tpu_torch.surface import voronoi_device as vd
+    from waterorderlib_tpu_torch.surface.voronoi import voronoi_contacts
+
+    heavy = top.get_heavy_inds()
+    row_of = {int(a): i for i, a in enumerate(heavy)}
+    sol = np.array([row_of[int(a)] for a in top.get_sol_inds("WAT")[0]], int)
+    pos = np.asarray(traj.positions[:2][:, heavy], np.float32)
+    box = np.asarray(traj.boxes[:2, 0], np.float64)
+    dev = list(vd._contacts_frames(pos, box, len(heavy), sol, vd.DEFAULT_TIERS, 256, 96, "clip",
+                                   "cuda", False))
+    quirk = 0.0
+    flips, nonzero, worst = 0, 0, 0.0
+    for t in range(2):
+        rows, aa, _, av, _ = dev[t]
+        c, aah, _, avh = voronoi_contacts(pos[t].astype(np.float64), float(box[t]), len(heavy))
+        host = c[sol]
+        flip = np.abs(rows - host) > VOR_CONTACT_TOL
+        _check(_quirk_flips(rows[flip], host[flip]),
+               f"contact rows, frame {t}: an entry differs from Qhull other than by the quirk")
+        flips += int(flip.sum())
+        nonzero += int((host > 0).sum())
+        worst = max(worst, float(np.max(np.abs(aa[0, sol] - aah[0, sol]) / aah[0, sol])),
+                    float(np.max(np.abs(av[0, sol] - avh[0, sol]) / avh[0, sol])))
+        quirk += float(host[flip].sum()) / 2.0
+    print(f"[slice] the contact drivers' {len(sol)} solute rows, frames 0-1, against the host "
+          f"engine: areas and volumes within {worst:.3e} (limit {VOR_MEAN_TOL}), {flips} of "
+          f"{nonzero} nonzero entries beyond {VOR_CONTACT_TOL} (limit 1%); the host's entries "
+          f"there {quirk:.6f} (a frame's mean)", flush=True)
+    _check(flips <= 0.01 * nonzero and worst <= VOR_MEAN_TOL,
+           "the drivers' contact rows differ from the host engine")
+    return quirk / 2.0, quirk
+
+
 def main() -> int:
     import torch
 
@@ -1718,9 +2173,10 @@ def main() -> int:
     t0 = time.perf_counter()
     sass = _sass_start()
     build.build_all(["qtet_window", "nbr_window", "lsi_window", "hbond", "willard", "sasa",
-                     "voronoi_topk"])
-    print(f"[build] qtet_window.cu, nbr_window.cu, lsi_window.cu, hbond.cu, willard.cu, sasa.cu "
-          f"and voronoi_topk.cu built in parallel in {time.perf_counter() - t0:.2f} s", flush=True)
+                     "voronoi_topk", "voronoi_cells"])
+    print(f"[build] qtet_window.cu, nbr_window.cu, lsi_window.cu, hbond.cu, willard.cu, sasa.cu, "
+          f"voronoi_topk.cu and voronoi_cells.cu built in parallel in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     sass_ops = _sass_ops(*sass)
     import scipy.spatial  # noqa: F401  (the Voronoi host close: fail now if it is missing)
     for name, log in build.BUILD_LOG.items():
@@ -2295,8 +2751,11 @@ def main() -> int:
     _sasa_phases(card, kernels, errs, launches, times)
     _qtet_legacy_phases(card, kernels, errs, launches, times)
 
-    # 10. the Voronoi volumes slice
+    # 10. the Voronoi volumes slice; 11. the fused cell kernel and the
+    # Voronoi contacts slice
     _voronoi_phases(card, kernels, errs, launches, times)
+    _voronoi_cells_phases(card, kernels, errs, launches, times)
+    _voronoi_contacts_phases(card, kernels, errs, launches)
 
     # no jax, and nothing of the JAX package
     _check("jax" not in sys.modules, "jax was imported")

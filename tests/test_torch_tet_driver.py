@@ -109,9 +109,10 @@ def test_port_imports_no_jax(tmp_path):
     """Importing the port and running its drivers (the four order
     parameters, hb_calc, get_bound_wrap, density_grid, sasa_grid,
     density_voxel, sasa_per_atom, sasa_calc and sphere_volumes), the
-    earlier q kernels (dense, frames, v1 slab) and voronoi_calc (device and
-    host engines: scipy, not jax) leaves jax, and every module of the JAX
-    package, out of sys.modules."""
+    earlier q kernels (dense, frames, v1 slab), voronoi_calc,
+    contact_area_calc and hydrated_volume_calc (device and host engines:
+    scipy, not jax) leaves jax, and every module of the JAX package, out of
+    sys.modules."""
     import __graft_entry__ as g
 
     code = (
@@ -145,10 +146,13 @@ def test_port_imports_no_jax(tmp_path):
         "assert qtet_kernel.order_param_q_dense_frames(tp, tb)[0].shape == (2, 64)\n"
         "assert qtet_sorted.order_param_q_sorted(tp, tb, pad=64)[0].shape == (2, 64)\n"
         "assert qtet_sorted.order_param_q_sorted_traj(tp, tb, pad=64)[0].shape == (2, 64)\n"
-        "from waterorderlib_tpu_torch.drivers.voronoi_driver import voronoi_calc\n"
+        "from waterorderlib_tpu_torch.drivers.voronoi_driver import (\n"
+        "    contact_area_calc, hydrated_volume_calc, voronoi_calc)\n"
         "for eng in ('device', 'host'):\n"
         f"    assert len(voronoi_calc(top, traj, output_dir={str(tmp_path)!r}, engine=eng,\n"
         "                            device='cpu')) == 6\n"
+        "    assert len(contact_area_calc(stop, straj, engine=eng, device='cpu')) == 4\n"
+        "    assert len(hydrated_volume_calc(stop, straj, engine=eng, device='cpu')) == 2\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'waterorderlib_tpu' or m.startswith('waterorderlib_tpu.')]\n"

@@ -1,0 +1,242 @@
+"""The port's fused Voronoi cell kernel (ops/cuda/voronoi_cells.py, its plain
+version on CPU tensors) against the JAX package's `voronoi_cells_pallas` in
+interpret mode, and the port's triple builder against the JAX package's
+`_cell_moments`.
+
+Tolerances, as the JAX package's own tests set them
+(tests/test_voronoi_device.py, the Pallas cell tests): `ok_shape` and
+`extra_cut` equal on every row, face vertex counts equal where both are ok;
+vol, area and r_cell within 1e-5 relative; face areas within 5e-5 Å² at (32,
+64), and within 1e-5 of the cell's area at (40, 96), where larger faces
+carry more of the rounding (the JAX wide-tier test checks volumes only).
+The Pallas kernel sums faces with a matmul in no fixed order and the port in
+slot order, so the two round apart. `dedup_mode="always"` is the clip
+builder itself: equal bit for bit. The triple builder: the port's clip-
+builder tolerances (tests/test_torch_voronoi_device.py): flags equal but
+for listed flips (at most 1% of rows), vol, area and r_cell within 1e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from waterorderlib_tpu.io.synthetic import water_oxygen_lattice
+from waterorderlib_tpu.ops import pairs as ops_pairs
+from waterorderlib_tpu.ops.pallas import voronoi_cells as jcells
+from waterorderlib_tpu.surface import voronoi_device as jvd
+from waterorderlib_tpu_torch import interop
+from waterorderlib_tpu_torch.ops.cuda import voronoi_cells as vc
+from waterorderlib_tpu_torch.surface import voronoi_device as tvd
+from waterorderlib_tpu_torch.utils import logging as tlog
+
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
+REL = 1e-5
+
+
+def _water_points(n=500, jitter=0.6, seed=0):
+    box_l = (n / 0.033456) ** (1.0 / 3.0)
+    base = np.asarray(water_oxygen_lattice(n, box_l, seed=1), float)
+    rs = np.random.RandomState(seed)
+    return (base + rs.normal(scale=jitter, size=base.shape)) % box_l, box_l
+
+
+def _cubic(a=3.0, ng=6):
+    g = np.arange(ng) * a + a / 2.0
+    return np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3), ng * a
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12))) if a.size else 0.0
+
+
+def _kernel_inputs(pts, box_l, k=32, ks=64):
+    """The JAX tests' kernel inputs: the full-scan search's candidates,
+    parked, and the boundary flag. Returns numpy (rel_all, rel_parked,
+    valid, is_boundary, d_far)."""
+    pts = jnp.asarray(pts, jnp.float32)
+    ext = jvd.mirror_points_device(pts, box_l)
+    box = jnp.asarray([jvd._NO_PBC_BOX] * 3, jnp.float32)
+    nl = ops_pairs.topk_neighbors(pts, ext, box, k=ks, low_cut=0.0, high_cut=jnp.inf,
+                                  row_block=64)
+    rel_all = ext[nl.idx] - pts[:, None, :]
+    park = jnp.asarray(jvd._park_directions(ks), jnp.float32) * jnp.float32(jvd._FAR)
+    rel_parked = jnp.where(nl.valid[..., None], rel_all, park)
+    is_b = jnp.any(nl.idx[:, :k] >= pts.shape[0], axis=1)
+    return tuple(np.asarray(x) for x in (rel_all, rel_parked, nl.valid, is_b, nl.dist[:, -1]))
+
+
+_CASES = {"water160": (lambda: _water_points(160), 32, 64),
+          "cubic216": (_cubic, 32, 64),
+          "water120": (lambda: _water_points(120, seed=2), 40, 96)}
+
+
+@pytest.mark.parametrize("case", list(_CASES))
+def test_fused_plain_matches_pallas_interpret(case):
+    """The plain fused version against `voronoi_cells_pallas(...,
+    interpret=True)` on the JAX tests' fixtures. On the 6^3 cubic lattice
+    the tangency test must fire on interior rows (no boundary flag) and
+    every cell certify at a^3."""
+    make, k, ks = _CASES[case]
+    pts, box_l = make()
+    _, rel_parked, valid, is_b, d_far = _kernel_inputs(pts, box_l, k, ks)
+    ref = {key: np.asarray(v) for key, v in jcells.voronoi_cells_pallas(
+        jnp.asarray(rel_parked), jnp.asarray(valid), jnp.asarray(is_b), k, 1e-4,
+        interpret=True).items()}
+    args = interop.voronoi_cells_inputs_from_jax(rel_parked, valid, is_b, "cpu")
+    before = vc.voronoi_cells_fused_plain.calls
+    out = {key: v.numpy() for key, v in vc.voronoi_cells_fused(*args, k, 1e-4).items()}
+    assert vc.voronoi_cells_fused_plain.calls == before + 1
+    np.testing.assert_array_equal(out["ok_shape"], ref["ok_shape"])
+    np.testing.assert_array_equal(out["extra_cut"], ref["extra_cut"])
+    both = out["ok_shape"] & ref["ok_shape"]
+    assert both.sum() >= 0.5 * len(pts)
+    for key in ("vol", "area", "r_cell"):
+        assert _rel(out[key][both], ref[key][both]) <= REL, key
+    np.testing.assert_array_equal(out["face_nverts"][both], ref["face_nverts"][both])
+    gap = np.abs(out["face_area"][both] - ref["face_area"][both]).max(1)
+    if k == 32:
+        assert gap.max() <= 5e-5
+    else:
+        assert np.all(gap <= REL * ref["area"][both])
+    if case == "cubic216":
+        a = 3.0
+        assert int((~is_b).sum()) >= 8  # the rows without the boundary flag
+        cert = out["ok_shape"] & (d_far >= 2.0 * out["r_cell"])
+        assert cert.sum() == len(pts)
+        np.testing.assert_allclose(out["vol"], a**3, rtol=1e-2)
+
+
+def test_always_is_the_clip_builder_and_auto_skips_dedup():
+    """dedup_mode="always" equals the clip builder exactly; "auto" equals it
+    on the rows it dedups (boundary or tangent) and on the 160-point liquid
+    leaves some interior rows undeduped with the same moments."""
+    pts, box_l = _water_points(160)
+    _, rel_parked, valid, is_b, _ = _kernel_inputs(pts, box_l)
+    rel, ok, flag = interop.voronoi_cells_inputs_from_jax(rel_parked, valid, is_b, "cpu")
+    clip = tvd._clip_cells(rel, ok, 32, 1e-4)
+    always = vc.voronoi_cells_fused(rel, ok, flag, 32, 1e-4, dedup_mode="always")
+    for key in clip:
+        assert torch.equal(always[key], clip[key]), key
+    auto = vc.voronoi_cells_fused(rel, ok, flag, 32, 1e-4)
+    assert (~flag).sum() > 0
+    for key in ("vol", "area"):
+        assert torch.equal(auto[key][flag], clip[key][flag]), key
+        assert _rel(auto[key].numpy(), clip[key].numpy()) <= REL, key
+    # with no boundary flag anywhere, the tangency test alone decides
+    none = vc.voronoi_cells_fused(rel, ok, torch.zeros_like(flag), 32, 1e-4)
+    np.testing.assert_array_equal(none["ok_shape"].numpy(), auto["ok_shape"].numpy())
+
+
+def test_fits_voronoi_cells_is_jaxs():
+    """The copied fit predicate equals the JAX package's over a sweep."""
+    for k in range(2, 66, 3):
+        for ks in range(k, 140, 7):
+            assert vc.fits_voronoi_cells(k, ks) == jcells.fits_voronoi_cells(k, ks), (k, ks)
+    assert vc.fits_voronoi_cells(32, 64) and vc.fits_voronoi_cells(40, 96)
+    assert not vc.fits_voronoi_cells(48, 96) and not vc.fits_voronoi_cells(32, 130)
+
+
+def test_input_checks(monkeypatch):
+    """Wrong dtypes, shapes, sizes and modes raise; so does a CUDA device
+    without a GPU, on the wrapper's route through the hybrid."""
+    rel = torch.zeros((4, 64, 3))
+    valid = torch.ones((4, 64), dtype=torch.bool)
+    flag = torch.zeros(4, dtype=torch.bool)
+    with pytest.raises(TypeError):
+        vc.voronoi_cells_fused(rel.half(), valid, flag, 32, 1e-4)
+    with pytest.raises(TypeError):
+        vc.voronoi_cells_fused(rel.int(), valid, flag, 32, 1e-4)
+    with pytest.raises(ValueError):
+        vc.voronoi_cells_fused(rel[..., :2].contiguous(), valid, flag, 32, 1e-4)
+    with pytest.raises(ValueError):
+        vc.voronoi_cells_fused(rel, valid[:, :32], flag, 32, 1e-4)
+    with pytest.raises(ValueError):
+        vc.voronoi_cells_fused(rel, valid, flag.int(), 32, 1e-4)
+    with pytest.raises(ValueError):
+        vc.voronoi_cells_fused(rel, valid, flag, 49, 1e-4)
+    with pytest.raises(ValueError):
+        vc.voronoi_cells_fused(torch.zeros((4, 130, 3)), torch.ones((4, 130), dtype=torch.bool),
+                               flag, 32, 1e-4)
+    with pytest.raises(ValueError):
+        vc.voronoi_cells_fused(rel, valid, flag, 32, 1e-4, dedup_mode="never")
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        vc.voronoi_cells_fused(rel.to("meta"), valid.to("meta"), flag.to("meta"), 32, 1e-4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts, box_l = _water_points(64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tvd.voronoi_volumes_hybrid(pts, box_l, 64, cell_impl="pallas")
+
+
+def test_pallas_serves_the_fitting_tiers():
+    """cell_impl="pallas" builds with the fused kernel's plain version at the
+    tiers `fits_voronoi_cells` admits (tier 1 of both ladders) and with the
+    clip builder elsewhere; volumes within 1e-5 of cell_impl="clip"."""
+    pts, box_l = _water_points(300, seed=3)
+    pts = pts.astype(np.float32)
+    res = {}
+    for impl in ("clip", "pallas"):
+        tvd.tier_stats.clear()
+        before = vc.voronoi_cells_fused_plain.calls
+        res[impl] = tvd.voronoi_volumes_hybrid(pts, box_l, 300, cell_impl=impl, device="cpu")
+        cells = {key: v["cells"] for key, v in tvd.tier_stats.items() if key != "host"}
+        calls = vc.voronoi_cells_fused_plain.calls - before
+        if impl == "pallas":
+            assert cells[(32, 64)] == "pallas" and calls == 1
+            assert all(v == "clip" for key, v in cells.items() if key != (32, 64))
+            assert len(cells) >= 2
+        else:
+            assert set(cells.values()) == {"clip"} and calls == 0
+    assert _rel(res["pallas"][0], res["clip"][0]) <= REL
+    assert _rel(res["pallas"][1], res["clip"][1]) <= REL
+    assert tvd._tier_impl("pallas", 40, 96) == "pallas"
+    assert tvd._tier_impl("pallas", 48, 96) == "clip"
+
+
+@pytest.mark.parametrize("seed", [4, 5])
+def test_triple_builder_matches_jax(seed):
+    """The port's triple builder on the JAX package's candidates against its
+    vmapped `_cell_moments` (the clip-vs-triple test's builder), on 160
+    liquid points."""
+    import jax
+
+    pts, box_l = _water_points(160, seed=seed)
+    rel_all, _, valid, _, _ = _kernel_inputs(pts, box_l)
+    ref = jax.vmap(lambda r, o: jvd._cell_moments(r, o, 32, 1e-4))(
+        jnp.asarray(rel_all), jnp.asarray(valid))
+    ref = {key: np.asarray(v) for key, v in ref.items()}
+    out = tvd._clip_cells(torch.tensor(rel_all), torch.tensor(valid), 32, 1e-4,
+                          builder=tvd._cell_moments_triple)
+    out = {key: v.numpy() for key, v in out.items()}
+    flips = np.where(out["ok_shape"] != ref["ok_shape"])[0]
+    assert len(flips) <= 0.01 * len(pts), flips
+    both = out["ok_shape"] & ref["ok_shape"]
+    assert both.sum() >= 0.5 * len(pts)
+    for key in ("vol", "area", "r_cell"):
+        assert _rel(out[key][both], ref[key][both]) <= REL, key
+    np.testing.assert_array_equal(out["face_nverts"][both], ref["face_nverts"][both])
+
+
+def test_triple_hybrid_and_warning_once(caplog):
+    """cell_impl="triple" runs through the hybrid on its three tiers
+    (k <= 64) and warns once per process; its certified volumes agree with
+    the clip builder's within the JAX package's 2e-4 (the two builders'
+    certificates differ)."""
+    tlog._LOGGED_ONCE.discard(("voronoi_triple_bound",))
+    pts, box_l = _water_points(100, seed=6)
+    pts = pts.astype(np.float32)
+    with caplog.at_level("WARNING", logger="waterorderlib_tpu_torch"):
+        tvd.tier_stats.clear()
+        vt, at, nt = tvd.voronoi_volumes_hybrid(pts, box_l, 100, cell_impl="triple",
+                                                device="cpu")
+        assert all(key == "host" or key[0] <= 64 for key in tvd.tier_stats)
+        tvd.voronoi_cells_device(pts, box_l, 100, cell_impl="triple", device="cpu")
+    warned = [r for r in caplog.records if "cell_impl='triple'" in r.getMessage()]
+    assert len(warned) == 1
+    vc_, ac_, _ = tvd.voronoi_volumes_hybrid(pts, box_l, 100, device="cpu")
+    np.testing.assert_allclose(vt, vc_, rtol=2e-4)
+    np.testing.assert_allclose(at, ac_, rtol=2e-4)
+    assert tvd._tiers_for("triple", tvd.DEFAULT_TIERS) == tvd.DEFAULT_TIERS[:3]

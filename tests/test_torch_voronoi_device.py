@@ -268,12 +268,16 @@ def test_clip_certified_error_band(seed):
 
 
 def test_options_not_ported_raise():
+    """Every cell_impl of the JAX package runs; an unknown one raises, and
+    so do mesh= (not ported) and k_search < k."""
     pts, box_l = _water_points(64)
     for impl in ("pallas", "triple"):
-        with pytest.raises(NotImplementedError, match="queue"):
-            tvd.voronoi_cells_device(pts, box_l, 64, cell_impl=impl, device="cpu")
-        with pytest.raises(NotImplementedError, match="queue"):
-            tvd.voronoi_volumes_hybrid(pts, box_l, 64, cell_impl=impl, device="cpu")
+        out = tvd.voronoi_cells_device(pts, box_l, 64, cell_impl=impl, device="cpu")
+        assert out["vol"].shape == (64,)
+    with pytest.raises(ValueError, match="cell_impl"):
+        tvd.voronoi_cells_device(pts, box_l, 64, cell_impl="pallas_always", device="cpu")
+    with pytest.raises(ValueError, match="cell_impl"):
+        tvd.voronoi_volumes_hybrid(pts, box_l, 64, cell_impl="qhull", device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 15"):
         tvd.voronoi_volumes_hybrid_frames(pts[None], [box_l], 64, mesh=object(), device="cpu")
     with pytest.raises(ValueError):

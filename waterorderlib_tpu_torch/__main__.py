@@ -8,6 +8,7 @@
     python -m waterorderlib_tpu_torch hb sys.json sys.npz --output-dir out/
     python -m waterorderlib_tpu_torch boundwrap sys.json sys.npz --cache bw.npz
     python -m waterorderlib_tpu_torch voronoi sys.json sys.npz --engine device
+    python -m waterorderlib_tpu_torch contactarea sys.json sys.npz --engine device
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ def main(argv=None):
          [("--cutoff", float, 4.0), ("--cache", str, "")]),
         ("voronoi", "Voronoi volume, area and asphericity per water",
          [("--engine", str, "auto")]),
+        ("contactarea", "the solute's Voronoi contact areas (phobic/philic/bound/wrap)",
+         [("--cutoff", float, 4.0), ("--engine", str, "auto")]),
     ]:
         p = sub.add_parser(name, help=helptext)
         _add_common(p)
@@ -111,6 +114,17 @@ def main(argv=None):
         )
         print(json.dumps({"avgVol": avg_v[0].tolist(), "avgArea": avg_a[0].tolist(),
                           "avgEta": avg_e[0].tolist()}))
+        return 0
+
+    if args.cmd == "contactarea":
+        from waterorderlib_tpu_torch.drivers.voronoi_driver import contact_area_calc
+
+        tot, tot_ci, frac, frac_ci = contact_area_calc(
+            args.top, args.traj, wat_res=args.wat_res, stride=args.stride, cutoff=args.cutoff,
+            engine=args.engine, chunk_frames=args.chunk_frames or None, mesh=args.mesh or None,
+            device=args.device,
+        )
+        print(json.dumps({"totArea": tot, "fracArea": frac}))
         return 0
 
     from waterorderlib_tpu_torch.drivers import orderparams

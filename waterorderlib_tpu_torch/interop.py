@@ -11,7 +11,9 @@ JAX prep and kernel parity checked apart from prep parity, and
 occlusion kernel can be fed the JAX package's occluder slots;
 `voronoi_candidates_from_jax` carries a Voronoi tier's candidate payload,
 so the port's clip builder and host close can be fed the JAX package's
-candidates apart from its search.
+candidates apart from its search; `voronoi_cells_inputs_from_jax` carries
+the fused cell kernel's inputs, so the port's kernel can be fed those of
+`voronoi_cells_pallas`.
 """
 
 from __future__ import annotations
@@ -88,3 +90,15 @@ def voronoi_candidates_from_jax(rel_all, valid, nbr_idx, nbr_dist, device) -> Vo
         nbr_idx=torch.tensor(np.asarray(nbr_idx, np.int32), device=device),
         nbr_dist=torch.tensor(np.asarray(nbr_dist), dtype=fdtype, device=device),
     )
+
+
+def voronoi_cells_inputs_from_jax(rel_parked, valid, is_boundary, device):
+    """The port's `ops.cuda.voronoi_cells.voronoi_cells_fused` inputs for
+    those of the JAX `voronoi_cells_pallas`, given as numpy arrays:
+    (rel_parked (R, ks, 3) in its dtype, contiguous; valid (R, ks) bool;
+    is_boundary (R,) bool)."""
+    rel = np.ascontiguousarray(rel_parked)
+    fdtype = torch.float64 if rel.dtype == np.float64 else torch.float32
+    return (torch.tensor(rel, dtype=fdtype, device=device),
+            torch.tensor(np.asarray(valid, bool), device=device),
+            torch.tensor(np.asarray(is_boundary, bool), device=device))

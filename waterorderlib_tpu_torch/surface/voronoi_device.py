@@ -1,8 +1,10 @@
-"""Device Voronoi volumes (port of waterorderlib_tpu.surface.voronoi_device,
-its volumes half): mirrored candidates, the K-nearest search on the
-hand-written kernel (ops/cuda/voronoi_topk.py, z-window and cell-grid
-forms), the clip cell builder in PyTorch, the exactness certificates, the
-escalation ladder and the host close.
+"""Device Voronoi cells (port of waterorderlib_tpu.surface.voronoi_device):
+mirrored candidates, the K-nearest search on the hand-written kernel
+(ops/cuda/voronoi_topk.py, z-window and cell-grid forms), three cell
+builders (the clip builder in PyTorch, the default; the fused cell kernel
+ops/cuda/voronoi_cells.py under cell_impl="pallas"; the legacy triple
+builder in PyTorch), the exactness certificates, the escalation ladder, the
+host close, and the contact matrices built from the cells' faces.
 
 The design is the JAX package's (see its module docstring): the candidate
 set is the points plus their single-axis reflections across the nearer box
@@ -15,21 +17,23 @@ the (k, k_search) tiers and what is left is closed on the host with scipy.
 What the port keeps verbatim, because it decides which tier certifies a
 row: the sizing helpers (`_suggest_win`, `_suggest_win_subset`,
 `_quantize_win`, `_suggest_mirror_budget`, `_suggest_cellgrid`), the
-depth-pruned mirror set, the escalation subsets' bucket padding and the
-stable sorts (x and y mirrors share their source's z exactly, so the
-z-order of the window search has ties on most lanes). What it drops: the
-TPU's attempt ladders and `_dispatch_cells` (a kernel that fails to build
-or launch raises; `_cells_blocked` routes the search), the
-scoped-VMEM fit models, and the 128-lane rounding of window starts.
+depth-pruned mirror set, the escalation subsets' bucket padding, the stable
+sorts (x and y mirrors share their source's z exactly, so the z-order of
+the window search has ties on most lanes) and the fused kernel's tiers
+(`fits_voronoi_cells`: its dedup rule certifies other rows than the clip
+builder's). What it drops: the TPU's attempt ladders and `_dispatch_cells`
+(a kernel that fails to build or launch raises; `_cells_blocked` routes the
+search and the builder), the scoped-VMEM fit models of the search, and the
+128-lane rounding of window starts.
 
 Frames are a batch dimension: tier 1 of a frame batch is one search launch
-and one batched clip build, and each escalation tier one more. The clip
-builder works on blocks of rows; its sums over edges and faces are taken
-in a fixed order, so a row's moments do not depend on the block it lies
-in, the frame batch, or the device. Its products over xyz are written as
-sums (no matmul, so no TF32). float32 runs everywhere (eps 1e-4); float64
-runs on CPU tensors only (eps 1e-10), where the kernel's wrappers run their
-plain versions.
+and one batched cell build, and each escalation tier one more, for volumes
+and contacts alike. The clip builder works on blocks of rows; its sums over
+edges and faces are taken in a fixed order, so a row's moments do not
+depend on the block it lies in, the frame batch, or the device. Its
+products over xyz are written as sums (no matmul, so no TF32). float32 runs
+everywhere (eps 1e-4); float64 runs on CPU tensors only (eps 1e-10), where
+the kernels' wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -42,13 +46,19 @@ import torch
 
 from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end
 from waterorderlib_tpu_torch.core.fp32 import sqrt_f32
+from waterorderlib_tpu_torch.ops.cuda import voronoi_cells as vcells
 from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
 from waterorderlib_tpu_torch.utils.logging import log_once
 
 # Far parking distance for unused candidate slots (mirror set is always
 # >= 3 points, so slots only go unused for tiny inputs).
 _FAR = 1.0e6
+# the clip interval's "no bound" sentinel
+_BIG = 3.0e37
+# "clip" (the default, as in the JAX package), "pallas" (the fused cell
+# kernel, ops/cuda/voronoi_cells.py, at the tiers it fits) or "triple"
 DEFAULT_CELL_IMPL = "clip"
+CELL_IMPLS = ("clip", "pallas", "triple")
 # escalation ladder and the wide tier-1 alternative, as in the JAX package
 DEFAULT_TIERS = ((32, 64), (48, 96), (64, 128), (96, 192), (128, 256))
 WIDE_TIERS = ((40, 96), (48, 96), (64, 128), (96, 192), (128, 256))
@@ -68,20 +78,32 @@ def _count(key, **add):
         entry[name] = v if isinstance(v, str) else entry.get(name, 0) + v
 
 
-def _not_ported(cell_impl=DEFAULT_CELL_IMPL, mesh=None):
-    if cell_impl == "pallas":
-        raise NotImplementedError(
-            "cell_impl='pallas' (the fused cell-moments kernel) is not ported yet: "
-            "ROADMAP queue 2 item 17")
-    if cell_impl == "triple":
-        raise NotImplementedError(
-            "cell_impl='triple' (the legacy triple builder) is not ported yet: "
-            "ROADMAP queue 1 item 14, the contacts PR")
-    if cell_impl != "clip":
-        raise ValueError(f"cell_impl must be 'clip', got {cell_impl!r}")
+def _not_ported(mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet: torch.distributed scale-out is ROADMAP queue 1 item 15")
+
+
+def _check_cell_impl(cell_impl: str) -> None:
+    """Raise on an unknown builder; warn once if it is the triple builder."""
+    if cell_impl not in CELL_IMPLS:
+        raise ValueError(f"cell_impl must be one of {CELL_IMPLS}, got {cell_impl!r}")
+    _warn_triple_once(cell_impl)
+
+
+def _tier_impl(cell_impl: str, k: int, k_search: int) -> str:
+    """The builder that serves a (k, k_search) tier: the fused kernel where
+    the JAX package's fit predicate holds for it, the clip builder
+    elsewhere under "pallas"."""
+    if cell_impl == "pallas" and not vcells.fits_voronoi_cells(k, k_search):
+        return "clip"
+    return cell_impl
+
+
+def _tiers_for(cell_impl: str, tiers):
+    """The triple builder is O(C(k,3) k): the (96, 192) and (128, 256) rescue
+    tiers are the clip builder's alone, as in the JAX package."""
+    return tuple(t for t in tiers if t[0] <= 64) if cell_impl == "triple" else tuple(tiers)
 
 
 @lru_cache(maxsize=8)
@@ -112,6 +134,14 @@ def _park_directions(k: int) -> np.ndarray:
     return np.stack(
         [np.cos(theta) * np.sin(phi), np.sin(theta) * np.sin(phi), np.cos(phi)], -1
     )
+
+
+def _park(rel_all):
+    """The parked positions of (..., K_search, 3) slots: K_search distinct
+    directions at _FAR."""
+    dtype, dev = rel_all.dtype, rel_all.device
+    return torch.as_tensor(_park_directions(rel_all.shape[-2]), dtype=dtype, device=dev) * \
+        torch.tensor(_FAR, dtype=dtype, device=dev)
 
 
 def _box(box_l, points):
@@ -322,7 +352,20 @@ def _nanmedian(x):
     return torch.where(n > 0, med, torch.full_like(med, float("nan")))
 
 
-def _cell_moments_clip(rel_all, slot_ok, k: int, eps: float):
+def _rows_prep(rel_all, slot_ok, k: int, eps: float):
+    """What both cell builders take from a block of rows: rel_all (B,
+    K_search, 3) with its padding slots parked, s_all = |r|^2 / 2, the
+    representative scale s_scale (the median candidate's s, not the min: a
+    boundary atom's nearest candidate is its own mirror, arbitrarily near),
+    tol = eps * s_scale and r_len_all = |r|."""
+    rel_all = torch.where(slot_ok[..., None], rel_all, _park(rel_all))
+    s_all = 0.5 * _dot3(rel_all, rel_all)
+    s_med = _nanmedian(torch.where(slot_ok, s_all, torch.full_like(s_all, float("nan"))))
+    s_scale = torch.where(torch.isfinite(s_med), s_med, torch.ones_like(s_med))
+    return rel_all, s_all, s_scale, eps * s_scale, _nrm(rel_all)
+
+
+def _cell_moments_clip(rel_all, slot_ok, k: int, eps: float, is_boundary=None):
     """Moments of a block of Voronoi cells by 1-D line clipping.
 
     rel_all: (B, K_search, 3) relative candidate positions (nearest first);
@@ -330,24 +373,15 @@ def _cell_moments_clip(rel_all, slot_ok, k: int, eps: float):
     plane pairs' intersection lines is clipped against the k build planes;
     the feasible interval is the cell edge and its endpoints are the cell's
     vertices. Planes k..K_search only check: `extra_cut` is set if one cuts
-    a feasible endpoint. Returns a dict of per-cell quantities: vol, area,
-    face_area (B, k), face_nverts (B, k), r_cell and the flags."""
+    a feasible endpoint. is_boundary (B,) bool: dedup edges only on these
+    rows and the tangent ones (the fused kernel's rule, see
+    `_faces_from_edges`); None dedups every row. Returns a dict of per-cell
+    quantities: vol, area, face_area (B, k), face_nverts (B, k), r_cell and
+    the flags."""
     prs, face_pairs, face_other = _pair_tables(k)
     dtype, dev = rel_all.dtype, rel_all.device
-    ks = rel_all.shape[1]
-    park = torch.as_tensor(_park_directions(ks), dtype=dtype, device=dev) * torch.tensor(
-        _FAR, dtype=dtype, device=dev)
-    rel_all = torch.where(slot_ok[..., None], rel_all, park)
-    rel = rel_all[:, :k]
-    s_all = 0.5 * _dot3(rel_all, rel_all)
-    s = s_all[:, :k]
-    # representative scale: the median candidate distance, not the min (a
-    # boundary atom's nearest candidate is its own mirror, arbitrarily near)
-    s_med = _nanmedian(torch.where(slot_ok, s_all, torch.full_like(s_all, float("nan"))))
-    s_scale = torch.where(torch.isfinite(s_med), s_med, torch.ones_like(s_med))
-    tol = eps * s_scale
-    r_len_all = _nrm(rel_all)
-    r_len = r_len_all[:, :k]
+    rel_all, s_all, s_scale, tol, r_len_all = _rows_prep(rel_all, slot_ok, k, eps)
+    rel, s, r_len = rel_all[:, :k], s_all[:, :k], r_len_all[:, :k]
 
     pi = torch.as_tensor(prs[:, 0], dtype=torch.long, device=dev)
     pj = torch.as_tensor(prs[:, 1], dtype=torch.long, device=dev)
@@ -370,7 +404,7 @@ def _cell_moments_clip(rel_all, slot_ok, k: int, eps: float):
     athr = eps * r_len_all[:, None, :]  # |t_hat| = 1
     tol_b = eps * (s_all[:, None, :] + qn[..., None] * r_len_all[:, None, :])
 
-    big = torch.tensor(3.0e37, dtype=dtype, device=dev)
+    big = torch.tensor(_BIG, dtype=dtype, device=dev)
     Ab, Bb = A[..., :k], Bm[..., :k]
     denom_ok = Ab.abs() > athr[..., :k]
     ratio = Bb / torch.where(denom_ok, Ab, torch.ones_like(Ab))
@@ -400,7 +434,91 @@ def _cell_moments_clip(rel_all, slot_ok, k: int, eps: float):
 
     return _faces_from_edges(
         rel, r_len, v1, v2, feas, r_cell, extra_cut, tol, s_scale, eps, face_pairs, face_other,
+        is_boundary,
     )
+
+
+@lru_cache(maxsize=4)
+def _triple_tables(k: int):
+    """The triple builder's static tables for K planes: the C(k,3) plane
+    triples, and for each plane pair the k-2 triples that hold it."""
+    prs = _pair_tables(k)[0]
+    tri = np.array(list(itertools.combinations(range(k), 3)), np.int32)
+    pair_id = {(int(i), int(j)): p for p, (i, j) in enumerate(prs)}
+    pair_tri = np.zeros((len(prs), k - 2), np.int32)
+    fill = np.zeros(len(prs), np.int64)
+    for t, (a, b, c) in enumerate(tri):
+        for ij in ((a, b), (a, c), (b, c)):
+            p = pair_id[(int(ij[0]), int(ij[1]))]
+            pair_tri[p, fill[p]] = t
+            fill[p] += 1
+    return tri, pair_tri
+
+
+def _cell_moments_triple(rel_all, slot_ok, k: int, eps: float):
+    """The legacy triple builder (the JAX package's `_cell_moments`), on a
+    block of rows: every plane triple's vertex by Cramer's rule, kept if it
+    lies inside all k build planes; each pair's edge runs between its
+    extreme kept vertices along r_i x r_j. Same contract as
+    `_cell_moments_clip` (dedup on every row); O(C(k,3) k) work."""
+    prs, face_pairs, face_other = _pair_tables(k)
+    tri, pair_tri = _triple_tables(k)
+    dtype, dev = rel_all.dtype, rel_all.device
+    rel_all, s_all, s_scale, tol, r_len_all = _rows_prep(rel_all, slot_ok, k, eps)
+    rel, s, r_len = rel_all[:, :k], s_all[:, :k], r_len_all[:, :k]
+
+    ta, tb, tc = (torch.as_tensor(tri[:, c], dtype=torch.long, device=dev) for c in range(3))
+    ra, rb, rc = rel[:, ta], rel[:, tb], rel[:, tc]  # (B, C, 3)
+    cbc, cca, cab = _cross(rb, rc), _cross(rc, ra), _cross(ra, rb)
+    det = _dot3(ra, cbc)
+    ok_det = det.abs() > eps * (r_len[:, ta] * r_len[:, tb] * r_len[:, tc])
+    num = s[:, ta, None] * cbc + s[:, tb, None] * cca + s[:, tc, None] * cab
+    X = num / torch.where(ok_det, det, torch.ones_like(det))[..., None]  # (B, C, 3)
+
+    Xc = X.movedim(-1, 0)[..., None]  # (3, B, C, 1)
+    r_c = rel_all.movedim(-1, 0).contiguous()[:, :, None, :]  # (3, B, 1, K_search)
+    vnorm = _nrm(X)
+    # slack >= 0 inside, with a tolerance scaled by the operands' magnitudes
+    slack_build = s[:, None, :] - _dot3_planes(Xc, r_c[..., :k])  # (B, C, k)
+    tol_build = eps * (s[:, None, :] + vnorm[..., None] * r_len[:, None, :])
+    vert_ok = ok_det & (slack_build >= -tol_build).all(-1)
+    r_cell = torch.where(vert_ok, vnorm, torch.zeros_like(vnorm)).amax(-1)
+    slack_extra = s_all[:, None, k:] - _dot3_planes(Xc, r_c[..., k:])
+    tol_extra = eps * (s_all[:, None, k:] + vnorm[..., None] * r_len_all[:, None, k:])
+    extra_cut = (vert_ok[..., None] & (slack_extra < -tol_extra)).flatten(1).any(-1)
+
+    # each pair's k-2 candidate vertices: the static triples that hold it
+    pt = torch.as_tensor(pair_tri, dtype=torch.long, device=dev)
+    Xp, vp = X[:, pt], vert_ok[:, pt]  # (B, P, k-2, 3), (B, P, k-2)
+    pi = torch.as_tensor(prs[:, 0], dtype=torch.long, device=dev)
+    pj = torch.as_tensor(prs[:, 1], dtype=torch.long, device=dev)
+    tdir = _cross(rel[:, pi], rel[:, pj])  # (B, P, 3)
+    u = _dot3(Xp, tdir[:, :, None, :])
+    big = torch.tensor(_BIG, dtype=dtype, device=dev)
+    j_lo = torch.where(vp, u, big).argmin(-1)
+    j_hi = torch.where(vp, u, -big).argmax(-1)
+    v1 = torch.gather(Xp, 2, j_lo[..., None, None].expand(*j_lo.shape, 1, 3))[:, :, 0]
+    v2 = torch.gather(Xp, 2, j_hi[..., None, None].expand(*j_hi.shape, 1, 3))[:, :, 0]
+    edge_ok = vp.sum(-1) >= 2
+    return _faces_from_edges(
+        rel, r_len, v1, v2, edge_ok, r_cell, extra_cut, tol, s_scale, eps, face_pairs, face_other,
+    )
+
+
+def _warn_triple_once(cell_impl: str) -> None:
+    """The triple builder's certificate is softer than the clip builder's
+    (worst certified float32 relative volume error 3.7e-3 against 9.8e-4 in
+    the JAX package's multi-seed measurement): say so once per process."""
+    if cell_impl == "triple":
+        log_once(
+            ("voronoi_triple_bound",),
+            "cell_impl='triple' carries a ~4x looser certified f32 error "
+            "bound than the default 'clip' builder (worst certified relative "
+            "volume error 3.7e-3 vs 9.8e-4 across seeds); 'triple' is kept "
+            "as a cross-check oracle — use the default for production "
+            "accuracy",
+            level="warning",
+        )
 
 
 def _gather_last(v, order):
@@ -442,12 +560,31 @@ def _dedup_edges(V1, V2, eok, htol):
     return torch.zeros_like(eok).scatter(-1, order, kept)
 
 
+def _face_sums(civ, tvec, sign, nhat, eok):
+    """Per-face sums over the edges eok (B, K, E) in slot order: vector
+    area (B, K, 3), polygon gap (B, K), signed area (B, K), edge count."""
+    w = torch.where(eok, sign, torch.zeros_like(sign))
+    vec_area = _fsum(civ * w[..., None], 2)  # (B, K, 3)
+    # per-face polygon closure: a lost or mis-extreme endpoint breaks the sum
+    face_gap = _nrm(_fsum(tvec * w[..., None], 2))  # (B, K)
+    return vec_area, face_gap, _dot3(vec_area, nhat), eok.sum(-1)
+
+
 def _faces_from_edges(
     rel, r_len, v1, v2, edge_ok, r_cell, extra_cut, tol, s_scale, eps, face_pairs, face_other,
+    is_boundary=None,
 ):
     """Face areas, closure certificates and cell moments from a block of
     cells' per-pair edge segments. v1/v2: (B, P, 3) edge endpoints per
-    plane pair; edge_ok: (B, P) which pairs carry a real segment."""
+    plane pair; edge_ok: (B, P) which pairs carry a real segment.
+
+    Endpoint dedup: with is_boundary None, on every row (the clip
+    builder). Otherwise the fused kernel's rule: the face sums are taken
+    without dedup, and only rows that are boundary (is_boundary) or tangent
+    (a face of >= 2 edges and signed area <= tol: a plane touching the cell
+    along an edge) take the dedup and new sums. Duplicate edges need such a
+    plane, and the tangency test is what keeps a perfect lattice's uniform
+    duplication (closure stays 0, the volume scales) from certifying."""
     dtype, dev = rel.dtype, rel.device
     fp = torch.as_tensor(face_pairs, dtype=torch.long, device=dev)
     fo = torch.as_tensor(face_other, dtype=torch.long, device=dev)
@@ -466,26 +603,33 @@ def _faces_from_edges(
     tlen = _nrm(tvec)
     eok = eok & (tlen > htol[:, None, None])  # zero-length point-touch "edges"
 
-    eok = _dedup_edges(V1, V2, eok, htol)
-
     orient = _dot3(_cross(rel[:, :, None, :], tvec), rj)  # >0: v1->v2 runs the wrong way
     sign = torch.where(orient > 0, -1.0, 1.0).to(dtype)
     q = 0.5 * rel  # a point on each face's plane
     civ = 0.5 * _cross(V1 - q[:, :, None, :], V2 - q[:, :, None, :])
-    w = torch.where(eok, sign, torch.zeros_like(sign))
-    vec_area = _fsum(civ * w[..., None], 2)  # (B, K, 3)
-    # per-face polygon closure: a lost or mis-extreme endpoint breaks the sum
-    face_gap = _nrm(_fsum(tvec * w[..., None], 2))  # (B, K)
     nhat = rel / r_len[..., None]
-    raw_area = _dot3(vec_area, nhat)  # (B, K) signed
+    if is_boundary is None:
+        eok = _dedup_edges(V1, V2, eok, htol)
+        vec_area, face_gap, raw_area, nedges_raw = _face_sums(civ, tvec, sign, nhat, eok)
+    else:
+        sums = _face_sums(civ, tvec, sign, nhat, eok)
+        tangent = ((sums[3] >= 2) & (sums[2] <= tol[:, None])).any(-1)
+        need = torch.nonzero(is_boundary | tangent)[:, 0]
+        if len(need):
+            eok_n = _dedup_edges(V1[need], V2[need], eok[need], htol[need])
+            part = _face_sums(civ[need], tvec[need], sign[need], nhat[need], eok_n)
+            sums = tuple(x.index_put((need,), y) for x, y in zip(sums, part))
+        vec_area, face_gap, raw_area, nedges_raw = sums
     # a real face has a closed polygon: >= 3 edges
-    nedges_raw = eok.sum(-1)
     face_real = (nedges_raw >= 3) & (raw_area > tol[:, None])
     face_area = torch.where(face_real, raw_area, torch.zeros_like(raw_area))
     face_nverts = torch.where(face_real, nedges_raw, torch.zeros_like(nedges_raw))
 
     area = _fsum(face_area, 1)
-    vol = _fsum(face_area * r_len, 1) / 6.0  # sum A_f * (|r_f|/2) / 3
+    # sum A_f * (|r_f|/2) / 3, a true division on every device (CUDA turns a
+    # division by a Python number into a product with its reciprocal)
+    vsum = _fsum(face_area * r_len, 1)
+    vol = vsum / torch.full_like(vsum, 6.0)
     real_area = torch.where(face_real[..., None], vec_area, torch.zeros_like(vec_area))
     closure = _nrm(_fsum(real_area, 1))
     # closure <= 20*eps*area keeps certified f32 cells within ~0.2% of exact
@@ -513,25 +657,35 @@ def _faces_from_edges(
     }
 
 
-def _clip_block_rows(k: int, k_search: int, device) -> int:
-    """Rows per block of the clip builder: its largest intermediates are
-    the (P, K_search) line-plane tables, some 12 alive at once, and the
-    (k, k-1, 3) edge tables (the endpoint comparisons go in steps of their
-    own, `_dedup_edges`)."""
+def _cell_block_rows(k: int, k_search: int, device, triple: bool = False) -> int:
+    """Rows per block of a cell builder. The clip builder's largest
+    intermediates are the (P, K_search) line-plane tables, some 12 alive at
+    once, and the (k, k-1, 3) edge tables (the endpoint comparisons go in
+    steps of their own, `_dedup_edges`); the triple builder's are its
+    (C(k,3), K_search) slack tables and the (P, k-2, 3) vertex gathers."""
     p = k * (k - 1) // 2
     per_row = 4 * (12 * p * k_search + 40 * k * (k - 1))
+    if triple:
+        per_row += 4 * (8 * (k * (k - 1) * (k - 2) // 6) * k_search + 8 * p * (k - 2))
     budget = CLIP_BLOCK_BYTES["cuda" if torch.device(device).type == "cuda" else "cpu"]
     return max(1, budget // per_row)
 
 
-def _clip_cells(rel_all, slot_ok, k: int, eps: float) -> dict:
-    """`_cell_moments_clip` over any number of rows, block by block."""
+def _clip_cells(rel_all, slot_ok, k: int, eps: float, is_boundary=None,
+                builder=_cell_moments_clip) -> dict:
+    """A cell builder (`_cell_moments_clip`, with `is_boundary` when given,
+    or `_cell_moments_triple`) over any number of rows, block by block."""
     n = rel_all.shape[0]
-    step = _clip_block_rows(k, rel_all.shape[1], rel_all.device)
-    parts = [_cell_moments_clip(rel_all[s : s + step], slot_ok[s : s + step], k, eps)
-             for s in range(0, n, step)]
-    if not parts:
-        parts = [_cell_moments_clip(rel_all, slot_ok, k, eps)]
+    step = _cell_block_rows(k, rel_all.shape[1], rel_all.device,
+                            triple=builder is _cell_moments_triple)
+
+    def block(s):
+        args = (rel_all[s : s + step], slot_ok[s : s + step], k, eps)
+        if is_boundary is not None:
+            args += (is_boundary[s : s + step],)
+        return builder(*args)
+
+    parts = [block(s) for s in range(0, n, step)] or [block(0)]
     return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
 
 
@@ -696,38 +850,72 @@ def _cellgrid_topk(centers, grid, k_search, n_side: int):
 # --- cells ------------------------------------------------------------------
 
 
-def _cells_blocked(centers, ext, k, k_search, row_block, eps, win=None, cg=None, box_l=None,
-                   stage=None, real=None):
-    """Candidate search and clip cells for a frame batch: centers (F, nc, 3),
-    ext (F, p4, 3). The search takes the cell-grid form when cg = (n_side,
-    cap) is given (box_l (F,) the real box edges), else the z-window form
-    (win >= p4 or None: the full scan). `real` (F, nc) bool: the rows whose
-    cells are wanted; the others (an escalation subset's bucket padding)
-    take part in the search, where they shape the window blocks, and get
-    zero cells. `stage`: the stage-clock prefix of the search and cells
-    steps, if any. Returns a dict of (F, nc, ...) tensors; `tier_stats`
-    records the search form."""
-    F, nc = centers.shape[0], centers.shape[1]
+def _search_rows(centers, ext, k_search, row_block, win=None, cg=None, box_l=None, stage=None):
+    """Candidate search for a frame batch: centers (F, nc, 3), ext (F, p4,
+    3). The cell-grid form when cg = (n_side, cap) is given (box_l (F,) the
+    real box edges), else the z-window form (win >= p4 or None: the full
+    scan). Returns the search's (dist, idx, valid, win_covered), its form,
+    and each row's candidates relative to its center (F * nc, K_search, 3)."""
     if cg is not None:
         grid = _cellgrid_build(ext, box_l, cg[0], cg[1])
         if stage:
             stage_end("mirrors and grid")
-        dist, idx, valid, win_cov = _cellgrid_topk(centers, grid, k_search, cg[0])
+        found = _cellgrid_topk(centers, grid, k_search, cg[0])
         form = "cellgrid"
     else:
         if stage:
             stage_end("mirrors and grid")
-        dist, idx, valid, win_cov = _windowed_topk(centers, ext, k_search, row_block, win)
+        found = _windowed_topk(centers, ext, k_search, row_block, win)
         form = "full" if win is None or win >= ext.shape[1] else "window"
     if stage:
         stage_end(f"{stage} search")
-    rel_all = _gather_rows(ext, idx) - centers[:, :, None, :]  # (F, nc, K_search, 3)
-    rel_all, ok = rel_all.reshape(F * nc, k_search, 3), valid.reshape(F * nc, k_search)
+    rel_all = _gather_rows(ext, found[1]) - centers[:, :, None, :]  # (F, nc, K_search, 3)
+    return found, form, rel_all.reshape(-1, k_search, 3)
+
+
+def _fused_inputs(rel_all, ok, nbr_idx, k, p4, n_real=None):
+    """The fused kernel's inputs for rows (R, K_search) of a search over
+    ext (F, p4, 3): the candidates, parked where invalid, the valid mask,
+    and each row's boundary flag, a mirror among its k build planes
+    (nbr_idx, the search's ids, >= n_real on the pruned mirror set, else
+    >= p4 // 4)."""
+    mirror_start = p4 // 4 if n_real is None else n_real
+    rel_parked = torch.where(ok[..., None], rel_all, _park(rel_all)).contiguous()
+    return rel_parked, ok, (nbr_idx[:, :k] >= mirror_start).any(-1)
+
+
+def _build_cells(rel_all, ok, nbr_idx, k, eps, impl, p4, n_real):
+    """Cells of rows (R, K_search) by builder `impl`: the clip or triple
+    builder block by block, or the fused kernel in one launch on
+    `_fused_inputs`."""
+    if impl == "pallas":
+        return vcells.voronoi_cells_fused(*_fused_inputs(rel_all, ok, nbr_idx, k, p4, n_real), k,
+                                          eps)
+    return _clip_cells(rel_all, ok, k, eps,
+                       builder=_cell_moments_triple if impl == "triple" else _cell_moments_clip)
+
+
+def _cells_blocked(centers, ext, k, k_search, row_block, eps, win=None, cg=None, box_l=None,
+                   stage=None, real=None, cell_impl=DEFAULT_CELL_IMPL, n_real=None):
+    """Candidate search (`_search_rows`) and cells for a frame batch:
+    centers (F, nc, 3), ext (F, p4, 3). `real` (F, nc) bool: the rows whose
+    cells are wanted; the others (an escalation subset's bucket padding)
+    take part in the search, where they shape the window blocks, and get
+    zero cells. The cells come from `_tier_impl(cell_impl, ...)`'s
+    builder; n_real: the points leading ext, below the mirrors (None: the
+    full 4P layout, p4 // 4). `stage`: the stage-clock prefix of the search
+    and cells steps, if any. Returns a dict of (F, nc, ...) tensors;
+    `tier_stats` records the search form and the builder."""
+    F, nc, p4 = centers.shape[0], centers.shape[1], ext.shape[1]
+    (dist, idx, valid, win_cov), form, rel_all = _search_rows(centers, ext, k_search, row_block,
+                                                               win, cg, box_l, stage)
+    ok, ids = valid.reshape(F * nc, k_search), idx.reshape(F * nc, k_search)
+    impl = _tier_impl(cell_impl, k, k_search)
     if real is None:
-        out = _clip_cells(rel_all, ok, k, eps)
+        out = _build_cells(rel_all, ok, ids, k, eps, impl, p4, n_real)
     else:
         rows = torch.nonzero(real.reshape(-1))[:, 0]
-        part = _clip_cells(rel_all[rows], ok[rows], k, eps)
+        part = _build_cells(rel_all[rows], ok[rows], ids[rows], k, eps, impl, p4, n_real)
         out = {}
         for key, v in part.items():
             out[key] = torch.zeros((F * nc, *v.shape[1:]), dtype=v.dtype, device=v.device)
@@ -739,8 +927,20 @@ def _cells_blocked(centers, ext, k, k_search, row_block, eps, win=None, cg=None,
     out["nbr_idx"] = idx
     out["nbr_valid"] = valid
     out["win_covered"] = win_cov
-    _count((k, k_search), form=form, launches=1, rows=F * nc)
+    _count((k, k_search), form=form, cells=impl, launches=1, rows=F * nc)
     return out
+
+
+def _bucket_pad(idx):
+    """Row ids padded to a power of two (at least 64) with copies of the
+    first, as the JAX package pads its subsets: the padded rows sit in the
+    z-sorted row blocks and decide, with the window, their coverage.
+    Returns (padded ids, count of real ones)."""
+    idx = np.asarray(idx)
+    n_want = len(idx)
+    bucket = max(64, 1 << int(np.ceil(np.log2(max(n_want, 1)))))
+    fill = np.full(bucket - n_want, idx[0] if n_want else 0, idx.dtype if n_want else np.int64)
+    return np.concatenate([idx, fill]), n_want
 
 
 def _certify(out, margin_eff=None):
@@ -784,8 +984,9 @@ def voronoi_cells_device(
     face_area (num, k), face_nverts (num, k), nbr_idx (num, k_search)
     indices into the full mirrored candidate set, r_cell, certified (num,)
     and the search's payload (nbr_dist, nbr_valid, win_covered; under
-    pruning prune_margin)."""
-    _not_ported(cell_impl)
+    pruning prune_margin). cell_impl: the builder ("clip", "pallas": the
+    fused kernel where `fits_voronoi_cells(k, k_search)` holds, "triple")."""
+    _check_cell_impl(cell_impl)
     dev = resolve_device(device)
     pts = _as_points(points, dev)
     if eps is None:
@@ -817,13 +1018,7 @@ def voronoi_cells_device(
         # bucket-pad the escalation subset to a power of two (copies of its
         # first row), as the JAX package does: the padded rows sit in the
         # z-sorted row blocks and decide, with the window, their coverage
-        centers_idx = np.asarray(centers_idx)
-        n_want = len(centers_idx)
-        bucket = max(64, 1 << int(np.ceil(np.log2(max(n_want, 1)))))
-        padded_idx = np.concatenate(
-            [centers_idx, np.full(bucket - n_want, centers_idx[0] if n_want else 0,
-                                  centers_idx.dtype if n_want else np.int64)]
-        )
+        padded_idx, n_want = _bucket_pad(centers_idx)
         centers = pts[torch.as_tensor(padded_idx, dtype=torch.long, device=dev)]
     nc = int(centers.shape[0])
     if win is None:
@@ -833,7 +1028,8 @@ def voronoi_cells_device(
     real = None if n_want is None else (torch.arange(nc, device=dev) < n_want)[None]
     out = _cells_blocked(
         centers[None], ext, k, k_search, min(row_block, max(1, nc)), float(eps), win=win,
-        cg=cg, box_l=box_t, real=real,
+        cg=cg, box_l=box_t, real=real, cell_impl=cell_impl,
+        n_real=p_real if ext_map is not None else None,
     )
     out["certified"] = _certify(out, margin_eff)
     if ext_map is not None:
@@ -950,48 +1146,76 @@ def _host_cell_best(ext: np.ndarray, center: np.ndarray, k2: int):
 
 
 def _escalate_and_close(points, box_l, num, vol, area, cert, tier_rows, tiers_rest,
-                        row_block, fallback_k, device, dtype):
+                        row_block, fallback_k, device, dtype, cell_impl=DEFAULT_CELL_IMPL,
+                        rows=None, block=None):
     """Escalation ladder + host close shared by the per-frame and the
-    frame-batched hybrids: re-run the uncertified cells through the
-    remaining (k, k_search) tiers (the last one full-scans, so a window
-    miss never forces a host close), then close any residue on the host.
-    `dtype`: the device computation's, in which the host close builds its
-    mirror set. Mutates vol/area/cert in place and returns them."""
+    frame-batched hybrids, volumes and contacts: re-run the uncertified
+    rows through the remaining (k, k_search) tiers (`voronoi_cells_device`
+    per tier; the last one full-scans, so a window miss never forces a host
+    close), then close any residue on the host (`_host_close`). cert (n,):
+    per row, row r being point rows[r] (None: point r); vol/area (num,) per
+    point; block (n, num): the rows' contacts, or None. `dtype`: the device
+    computation's, in which the host close builds its mirror set. Mutates
+    vol/area/cert/block in place and returns vol, area, cert."""
+    rows = np.arange(len(cert)) if rows is None else rows
+    P = len(points)
     for ti, tier in enumerate(tiers_rest):
         k2, ks2 = tier[:2]
-        bad_idx = np.where(~cert)[0]
-        if not len(bad_idx):
+        bad_pos = np.where(~cert)[0]
+        if not len(bad_pos):
             break
+        bad_idx = rows[bad_pos]
         last = ti == len(tiers_rest) - 1
         win_t = 0 if last else _quantize_win(
-            _suggest_win_subset(len(points), float(box_l), ks2, len(bad_idx)),
-            4 * len(points),
-        )
+            _suggest_win_subset(P, float(box_l), ks2, len(bad_idx)), 4 * P)
         out2 = voronoi_cells_device(
             points, box_l, num, k=k2, k_search=ks2, row_block=row_block,
-            centers_idx=bad_idx, win=win_t, cg=None if last else "auto", device=device,
+            centers_idx=bad_idx, win=win_t, cell_impl=cell_impl,
+            cg=None if last else "auto", device=device,
         )
         tier_rows.append((bad_idx, out2))
         c2 = _np(out2["certified"])
         fixed = bad_idx[c2]
         vol[fixed] = _np(out2["vol"]).astype(np.float64)[c2]
         area[fixed] = _np(out2["area"]).astype(np.float64)[c2]
-        cert[fixed] = True
-    bad = np.where(~cert)[0]
-    if len(bad):
-        pts = torch.as_tensor(np.asarray(points), dtype=dtype)
-        ext = mirror_points_device(pts, float(box_l)).numpy()
-        n_full = 0
-        for i, (rel, d_far, _sel) in zip(bad, _device_candidates(tier_rows, bad, ext, points)):
-            ok = False
-            if len(rel) >= 4 and np.isfinite(d_far):
-                v_i, a_i, fa, nv, r_cell, ok = _host_cell_from_device(rel, d_far)
-            if not ok:  # unseen candidates could cut: full host search
-                v_i, a_i, *_ = _host_cell_best(ext, points[i], fallback_k)
-                n_full += 1
-            vol[i], area[i] = v_i, a_i
-        _count("host", rows=len(bad), full_search=n_full)
+        if block is not None:
+            _scatter_contact_rows(block, {key: _np(out2[key]) for key in (
+                "face_area", "face_nverts", "nbr_idx")}, bad_pos, c2, P, num)
+        cert[bad_pos[c2]] = True
+    _host_close(points, box_l, num, rows, cert, vol, area, tier_rows, fallback_k, dtype, block)
     return vol, area, cert
+
+
+def _host_close(points, box_l, num, rows, cert, vol, area, tier_rows, fallback_k, dtype,
+                block=None):
+    """Close the uncertified rows (cert (n,), row r being point rows[r]) on
+    the host from the latest tier's candidates, or a host search where
+    unseen candidates could cut; with `block` (n, num), add each closed
+    row's faces to its contact row (the doubling quirk as in
+    `_scatter_contact_rows`). Mutates vol, area (num,) and block."""
+    bad_pos = np.where(~cert)[0]
+    if not len(bad_pos):
+        return
+    P = len(points)
+    pts = torch.as_tensor(np.asarray(points), dtype=dtype)
+    ext = mirror_points_device(pts, float(box_l)).numpy()
+    bad = rows[bad_pos]
+    n_full = 0
+    for pos, i, (rel, d_far, sel) in zip(bad_pos, bad,
+                                         _device_candidates(tier_rows, bad, ext, points)):
+        ok = False
+        if len(rel) >= 4 and np.isfinite(d_far):
+            v_i, a_i, fa, nv, r_cell, ok = _host_cell_from_device(rel, d_far)
+        if not ok:  # unseen candidates could cut: full host search
+            v_i, a_i, fa, nv, sel = _host_cell_best(ext, points[i], fallback_k)
+            n_full += 1
+        vol[i], area[i] = v_i, a_i
+        if block is not None:
+            o = sel % P
+            keep = (sel < P) & (o < num) & (fa[: len(sel)] > 1e-12)
+            np.add.at(block[pos], o[keep],
+                      (np.where(nv[: len(sel)] >= 4, 2.0, 1.0) * fa[: len(sel)])[keep])
+    _count("host", rows=len(bad), full_search=n_full)
 
 
 def voronoi_volumes_hybrid(
@@ -1008,11 +1232,13 @@ def voronoi_volumes_hybrid(
     certified (escalating through the (k, k_search) tiers), per-atom host
     half-space cells otherwise. Returns (vol (num,), area (num,),
     n_certified) as float64 numpy."""
-    _not_ported(cell_impl)
+    _check_cell_impl(cell_impl)
+    tiers = _tiers_for(cell_impl, tiers)
     points = np.asarray(points)
     k0, ks0 = tiers[0][:2]
     out = voronoi_cells_device(
-        points, box_l, num, k=k0, k_search=ks0, row_block=row_block, device=device,
+        points, box_l, num, k=k0, k_search=ks0, row_block=row_block, cell_impl=cell_impl,
+        device=device,
     )
     vol = _np(out["vol"]).astype(np.float64)
     area = _np(out["area"]).astype(np.float64)
@@ -1020,7 +1246,7 @@ def voronoi_volumes_hybrid(
     tier_rows = [(np.arange(num), out)]
     vol, area, cert = _escalate_and_close(
         points, box_l, num, vol, area, cert, tier_rows, tiers[1:],
-        row_block, fallback_k, device, out["vol"].dtype,
+        row_block, fallback_k, device, out["vol"].dtype, cell_impl,
     )
     return vol, area, int(cert.sum())
 
@@ -1047,41 +1273,68 @@ def _batch_static_config(pos_batch, box_ls, k0: int, ks0: int, dtype):
     return eps, win, budget, cg
 
 
-def _tier1_frames_local(pb, bl, num, k, ks, row_block, eps, win, mb=0, cg=None):
+def _tier1_frames_local(pb, bl, num, k, ks, row_block, eps, win, mb=0, cg=None,
+                        cell_impl=DEFAULT_CELL_IMPL, sel=None):
     """Tier-1 cells of a frame batch pb (F, P, 3), boxes bl (F,): mirror
-    construction (pruned when mb > 0), one search launch, the clip cells,
-    the certificate. Returns (vol, area, certified), each (F, num)."""
+    construction (pruned when mb > 0), one search launch, the cells, the
+    certificate. Rows: the first `num` points, or the point ids `sel`
+    (bucket-padded for the search, as `voronoi_cells_device` pads; the
+    padding gets no cells and is dropped). Returns the `_cells_blocked`
+    dict (F, rows, ...) with `certified`, nbr_idx in the full 4P layout
+    and prune_margin (+inf without pruning)."""
+    F, P = pb.shape[0], pb.shape[1]
     if mb > 0:
-        ext, _, margin_eff = mirror_points_pruned(pb, bl, mb)
+        ext, ext_map, margin_eff = mirror_points_pruned(pb, bl, mb)
     else:
-        ext, margin_eff = mirror_points_device(pb, bl), None
-    out = _cells_blocked(pb[:, :num], ext, k, ks, row_block, eps, win=win, cg=cg, box_l=bl,
-                         stage="tier-1")
-    cert = _certify(out, margin_eff)
-    _count((k, ks), certified=int(cert.sum()))
-    return out["vol"], out["area"], cert
+        ext, ext_map, margin_eff = mirror_points_device(pb, bl), None, None
+    real, n_want = None, num
+    if sel is None:
+        centers = pb[:, :num]
+    else:
+        padded, n_want = _bucket_pad(sel)
+        centers = pb[:, torch.as_tensor(padded, dtype=torch.long, device=pb.device)]
+        real = (torch.arange(len(padded), device=pb.device) < n_want)[None].expand(F, -1)
+        row_block = min(row_block, len(padded))
+    out = _cells_blocked(centers, ext, k, ks, row_block, eps, win=win,
+                         cg=cg, box_l=bl, stage="tier-1", real=real, cell_impl=cell_impl,
+                         n_real=P if mb > 0 else None)
+    out["certified"] = _certify(out, margin_eff)
+    if ext_map is not None:
+        out["nbr_idx"] = torch.gather(ext_map, 1, out["nbr_idx"].reshape(F, -1).long()).reshape(
+            out["nbr_idx"].shape)
+    pm = torch.full((F,), float("inf"), dtype=pb.dtype, device=pb.device) if margin_eff is None \
+        else margin_eff
+    out["prune_margin"] = pm[:, None].expand(F, centers.shape[1])
+    out = {key: v[:, :n_want] for key, v in out.items()}
+    _count((k, ks), certified=int(out["certified"].sum()))
+    return out
 
 
-def _tier_subset_frames(pb, bl, rows, real, k, ks, row_block, eps, win, cg=None):
+def _tier_subset_frames(pb, bl, rows, real, k, ks, row_block, eps, win, cg=None,
+                        cell_impl=DEFAULT_CELL_IMPL):
     """One escalation tier for selected rows (F, B) of every frame, on the
     full mirror set (`real` (F, B): the rows that are not bucket padding).
-    Returns (vol, area, cert) (F, B) and the candidate payload for the
-    host close."""
+    Returns the `_cells_blocked` dict (F, B, ...) with `certified`."""
     ext = mirror_points_device(pb, bl)
     out = _cells_blocked(_gather_rows(pb, rows), ext, k, ks, row_block, eps, win=win, cg=cg,
-                         box_l=bl, real=real)
-    cert = _certify(out)
-    return (out["vol"], out["area"], cert, out["nbr_dist"], out["nbr_idx"], out["nbr_valid"],
-            out["win_covered"])
+                         box_l=bl, real=real, cell_impl=cell_impl)
+    out["certified"] = _certify(out)
+    return out
 
 
-def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_rest, pb, bl):
+def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_rest, pb, bl,
+                             cell_impl=DEFAULT_CELL_IMPL, rows=None, faces=None):
     """The escalation ladder of a frame batch, one search launch per tier.
-    Mutates/returns (vol_b, area_b, cert_b, payload): payload[t] is frame
-    t's `tier_rows` for its host close (the last tier's candidates)."""
+    vol_b, area_b, cert_b (F, n): per frame row; `rows` (n,) the point id
+    of each row (None: row i is point i). Mutates/returns (vol_b, area_b,
+    cert_b, payload): payload[t] is frame t's `tier_rows` for its host
+    close (the last tier's candidates, keyed by point id). `faces`: None,
+    or a list per frame to which each tier appends its certified rows'
+    (row positions, face_area, face_nverts, nbr_idx): the contacts'
+    payload."""
     F, n_pts = pos_batch.shape[0], pos_batch.shape[1]
     payload = [[] for _ in range(F)]
-    last = None  # final executed tier: (bad_rows, device payload)
+    last = None  # final executed tier: (bad point ids, device payload)
     if not tiers_rest:
         return vol_b, area_b, cert_b, payload
     eps = 1e-10 if pb.dtype == torch.float64 else 1e-4
@@ -1091,7 +1344,8 @@ def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_res
     for ti, tier in enumerate(tiers_rest):
         k2, ks2 = tier[:2]
         is_last = ti == len(tiers_rest) - 1
-        bad_rows = [np.where(~cert_b[t])[0] for t in range(F)]
+        bad_pos = [np.where(~cert_b[t])[0] for t in range(F)]
+        bad_rows = bad_pos if rows is None else [rows[b] for b in bad_pos]
         max_bad = max(len(b) for b in bad_rows)
         if max_bad == 0:
             break
@@ -1116,13 +1370,15 @@ def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_res
         res = _tier_subset_frames(
             pb, bl, torch.as_tensor(rows_np, device=pb.device),
             torch.as_tensor(real, device=pb.device), k2, ks2, rb, float(eps),
-            win_t if win_t > 0 else None, cg2,
+            win_t if win_t > 0 else None, cg2, cell_impl,
         )
-        vol2, area2, cert2 = (_np(res[i]) for i in range(3))
+        vol2, area2, cert2 = (_np(res[key]) for key in ("vol", "area", "certified"))
+        if faces is not None:
+            fa2, fn2, ni2 = (_np(res[key]) for key in ("face_area", "face_nverts", "nbr_idx"))
         stage_end(f"escalation ({k2}, {ks2})")
-        last = (bad_rows, res[3], res[4], res[5], res[6])
+        last = (bad_rows, res)
         n_cert = 0
-        for t, b in enumerate(bad_rows):
+        for t, b in enumerate(bad_pos):
             nb = len(b)
             if nb == 0:
                 continue
@@ -1132,10 +1388,13 @@ def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_res
             area_b[t][fixed] = area2[t, :nb][c2].astype(np.float64)
             cert_b[t][fixed] = True
             n_cert += int(c2.sum())
+            if faces is not None:
+                faces[t].append((fixed, fa2[t, :nb][c2], fn2[t, :nb][c2], ni2[t, :nb][c2]))
         _count((k2, ks2), certified=n_cert)
     if last is not None and any(not cert_b[t].all() for t in range(F)):
-        bad_rows, ndj, nij, nvj, wcj = last
-        nd, nidx, nvalid, wcov = (_np(x) for x in (ndj, nij, nvj, wcj))
+        bad_rows, res = last
+        nd, nidx, nvalid, wcov = (_np(res[key]) for key in (
+            "nbr_dist", "nbr_idx", "nbr_valid", "win_covered"))
         for t, b in enumerate(bad_rows):
             nb = len(b)
             if nb == 0 or cert_b[t].all():
@@ -1159,14 +1418,16 @@ def voronoi_volumes_hybrid_frames(
     device="cuda",
 ):
     """Frame-batched `voronoi_volumes_hybrid`: tier-1 cells for all frames
-    in one search launch and one batched clip build, then one launch per
+    in one search launch and one batched cell build, then one launch per
     escalation tier for the whole batch, then a host close per frame from
     the last tier's candidates.
 
     pos_batch: (F, P, 3) (float64 stays float64: CPU only); box_ls: (F,)
     cubic box edges (may vary, NPT). Returns (vol (F, num), area (F, num),
     n_certified_total) as float64 numpy."""
-    _not_ported(cell_impl, mesh)
+    _check_cell_impl(cell_impl)
+    _not_ported(mesh)
+    tiers = _tiers_for(cell_impl, tiers)
     dev = resolve_device(device)
     pos_batch = np.asarray(pos_batch)
     box_ls = np.asarray(box_ls, np.float64).reshape(-1)
@@ -1176,16 +1437,16 @@ def voronoi_volumes_hybrid_frames(
     bl = torch.as_tensor(box_ls, dtype=pb.dtype, device=dev)
     stage_end("H2D")
     eps, win, mb, cg = _batch_static_config(pos_batch, box_ls, k0, ks0, pb.dtype)
-    vol_j, area_j, cert_j = _tier1_frames_local(pb, bl, num, k0, ks0, row_block, float(eps),
-                                                int(win), mb, cg)
+    out = _tier1_frames_local(pb, bl, num, k0, ks0, row_block, float(eps), int(win), mb, cg,
+                              cell_impl)
     log_once(("voronoi_frames", cg is not None, mb > 0),
              "voronoi tier-1 frame batch: topk=%s mirrors=%s (F=%d, n=%d)",
              "cellgrid" if cg is not None else "window", "pruned" if mb > 0 else "full", F, num)
-    vol_b = _np(vol_j).astype(np.float64)
-    area_b = _np(area_j).astype(np.float64)
-    cert_b = _np(cert_j).astype(bool)
+    vol_b = _np(out["vol"]).astype(np.float64)
+    area_b = _np(out["area"]).astype(np.float64)
+    cert_b = _np(out["certified"]).astype(bool)
     vol_b, area_b, cert_b, payload = _escalate_frames_batched(
-        pos_batch, box_ls, vol_b, area_b, cert_b, tiers[1:], pb, bl
+        pos_batch, box_ls, vol_b, area_b, cert_b, tiers[1:], pb, bl, cell_impl
     )
     n_cert_total = 0
     for t in range(F):
@@ -1197,3 +1458,173 @@ def voronoi_volumes_hybrid_frames(
         n_cert_total += int(cert_t.sum())
     stage_end("host close")
     return vol_b, area_b, n_cert_total
+
+
+# --- contacts ---------------------------------------------------------------
+
+# the tier-1 payload of a contacts frame batch: what `_scatter_contact_rows`
+# and `_device_candidates` read
+_CONTACTS_TIER1_KEYS = (
+    "vol", "area", "certified", "face_area", "face_nverts",
+    "nbr_idx", "nbr_dist", "nbr_valid", "win_covered", "prune_margin",
+)
+
+
+def _scatter_contact_rows(block, out, row_pos, keep_mask, P, num):
+    """Add one device tier's face areas to contact rows: block (n_rows,
+    num) the rows, row_pos the block row of each device row, keep_mask the
+    device rows to add (the certified ones). A face counts against its
+    candidate's source point if that is a real point below num; faces with
+    >= 4 vertices count twice (the reference's doubled-area quirk,
+    surface_library.py:295-303)."""
+    face_area = np.asarray(out["face_area"], np.float64)[keep_mask]
+    face_nverts = np.asarray(out["face_nverts"])[keep_mask]
+    nbr_idx = np.asarray(out["nbr_idx"])[keep_mask, : face_area.shape[1]]
+    rows = np.asarray(row_pos)[keep_mask][:, None].repeat(face_area.shape[1], 1)
+    orig = nbr_idx % P  # mirror image -> source point
+    is_real = (nbr_idx < P) & (orig < num) & (face_area > 0)
+    quirk = np.where(face_nverts >= 4, 2.0, 1.0)
+    np.add.at(block, (rows[is_real], orig[is_real]), (quirk * face_area)[is_real])
+
+
+def _contacts_result(block, sel_rows, vol, area, num, dense: bool):
+    """One frame's contacts from its rows. dense: the JAX return contract,
+    (contacts (num, num) symmetrized as np.maximum(C, C.T), atom_area,
+    wat_area, atom_vol (1, num)), built from the rows without reading the
+    whole matrix twice. Else the rows alone, symmetrized where they meet
+    each other's columns (which is all the symmetrization changes in
+    them): (rows (n_rows, num), atom_area, wat_area of the rows (n_rows,),
+    atom_vol)."""
+    atom_area = area[None, :num].copy()
+    atom_vol = vol[None, :num].copy()
+    if dense:
+        contacts = np.zeros((num, num))
+        contacts[sel_rows] = block
+        # every entry off the rows' columns has a zero partner: max(x, 0) = x
+        contacts[:, sel_rows] = np.maximum(contacts[:, sel_rows], block.T)
+        wat_area = (2.0 * atom_area - contacts[:num].sum(axis=1)[None, :]).copy()
+        return contacts, atom_area, wat_area, atom_vol
+    rows = block.copy()
+    sub = block[:, sel_rows]
+    rows[:, sel_rows] = np.maximum(sub, sub.T)
+    return rows, atom_area, 2.0 * atom_area[0, sel_rows] - rows.sum(axis=1), atom_vol
+
+
+def voronoi_contacts_hybrid(
+    points: np.ndarray,
+    box_l: float,
+    num: int,
+    tiers=DEFAULT_TIERS,
+    row_block: int = 256,
+    fallback_k: int = 96,
+    rows=None,
+    cell_impl: str = DEFAULT_CELL_IMPL,
+    device="cuda",
+):
+    """Drop-in for `surface.voronoi.voronoi_contacts`: (contacts (num, num),
+    atom_area (1, num), wat_area (1, num), atom_vol (1, num), n_certified).
+
+    Reproduces the reference's doubled-area quirk: faces with >= 4 vertices
+    contribute 2x their polygon area to the contact matrix, 3-vertex faces
+    1x (surface_library.py:295-303). `rows` (distinct point ids) restricts
+    which cells are computed; other rows of the returned arrays are zero.
+    One frame, with the JAX package's per-call ladder
+    (`voronoi_cells_device` per tier)."""
+    _check_cell_impl(cell_impl)
+    tiers = _tiers_for(cell_impl, tiers)
+    points = np.asarray(points)
+    P = len(points)
+    sel_rows = np.arange(num) if rows is None else np.asarray(rows, int)
+    k0, ks0 = tiers[0][:2]
+    out = voronoi_cells_device(
+        points, box_l, num, k=k0, k_search=ks0, row_block=row_block,
+        centers_idx=None if rows is None else sel_rows, cell_impl=cell_impl, device=device,
+    )
+    out = {key: _np(v) for key, v in out.items()}
+    cert = out["certified"].copy()  # in sel_rows space
+    vol = np.zeros(num)
+    area = np.zeros(num)
+    vol[sel_rows] = out["vol"].astype(np.float64)
+    area[sel_rows] = out["area"].astype(np.float64)
+    block = np.zeros((len(sel_rows), num))
+    _scatter_contact_rows(block, out, np.arange(len(sel_rows)), cert, P, num)
+    _escalate_and_close(points, box_l, num, vol, area, cert, [(sel_rows, out)], tiers[1:],
+                        row_block, fallback_k, device,
+                        torch.float64 if points.dtype == np.float64 else torch.float32,
+                        cell_impl, rows=sel_rows, block=block)
+    return (*_contacts_result(block, sel_rows, vol, area, num, dense=True), int(cert.sum()))
+
+
+def _contacts_frames(pos_batch, box_ls, num, rows, tiers, row_block, fallback_k, cell_impl,
+                     device, dense):
+    """The frame batch's contacts, frame by frame (see
+    `voronoi_contacts_hybrid_frames`; dense=False yields the rows form of
+    `_contacts_result`)."""
+    _check_cell_impl(cell_impl)
+    tiers = _tiers_for(cell_impl, tiers)
+    dev = resolve_device(device)
+    pos_batch = np.asarray(pos_batch)
+    box_ls = np.asarray(box_ls, np.float64).reshape(-1)
+    F, P = pos_batch.shape[0], pos_batch.shape[1]
+    sel_rows = np.arange(num) if rows is None else np.asarray(rows, int)
+    k0, ks0 = tiers[0][:2]
+    pb = _as_points(pos_batch, dev)
+    bl = torch.as_tensor(box_ls, dtype=pb.dtype, device=dev)
+    stage_end("H2D")
+    eps, win, mb, cg = _batch_static_config(pos_batch, box_ls, k0, ks0, pb.dtype)
+    out = _tier1_frames_local(pb, bl, num, k0, ks0, row_block, float(eps), int(win), mb, cg,
+                              cell_impl, sel=sel_rows)
+    tier1 = {key: _np(out[key]) for key in _CONTACTS_TIER1_KEYS}
+    log_once(("voronoi_contacts_frames", cg is not None, mb > 0),
+             "voronoi contacts tier-1 frame batch: topk=%s mirrors=%s (F=%d, rows=%d)",
+             "cellgrid" if cg is not None else "window", "pruned" if mb > 0 else "full", F,
+             len(sel_rows))
+    cert1 = tier1["certified"].astype(bool)
+    vol_b = tier1["vol"].astype(np.float64)
+    area_b = tier1["area"].astype(np.float64)
+    faces = [[] for _ in range(F)]
+    vol_b, area_b, cert_b, payload = _escalate_frames_batched(
+        pos_batch, box_ls, vol_b, area_b, cert1.copy(), tiers[1:], pb, bl, cell_impl,
+        rows=sel_rows, faces=faces)
+    for t in range(F):
+        tier1_t = {key: v[t] for key, v in tier1.items()}
+        vol, area = np.zeros(num), np.zeros(num)
+        vol[sel_rows], area[sel_rows] = vol_b[t], area_b[t]
+        block = np.zeros((len(sel_rows), num))
+        _scatter_contact_rows(block, tier1_t, np.arange(len(sel_rows)), cert1[t], P, num)
+        for pos, fa, fn, ni in faces[t]:
+            _scatter_contact_rows(block, {"face_area": fa, "face_nverts": fn, "nbr_idx": ni},
+                                  pos, np.ones(len(pos), bool), P, num)
+        _host_close(pos_batch[t], float(box_ls[t]), num, sel_rows, cert_b[t], vol, area,
+                    [(sel_rows, tier1_t)] + payload[t], fallback_k, pb.dtype, block)
+        stage_end("host close")
+        res = _contacts_result(block, sel_rows, vol, area, num, dense)
+        stage_end("contact assembly")
+        yield (*res, int(cert_b[t].sum()))
+
+
+def voronoi_contacts_hybrid_frames(
+    pos_batch: np.ndarray,
+    box_ls: np.ndarray,
+    num: int,
+    rows=None,
+    tiers=DEFAULT_TIERS,
+    row_block: int = 256,
+    fallback_k: int = 96,
+    cell_impl: str = DEFAULT_CELL_IMPL,
+    mesh=None,
+    device="cuda",
+):
+    """Frame-batched `voronoi_contacts_hybrid`: tier-1 cells (with their
+    faces) for all frames in one search launch and one cell build, the
+    escalation ladder once per tier for the whole batch (each tier's
+    certified rows keep their faces), then per frame the host close on the
+    last tier's candidates and the contact assembly.
+
+    Generator: yields per frame (contacts (num, num), atom_area (1, num),
+    wat_area (1, num), atom_vol (1, num), n_certified), so callers never
+    hold F contact matrices at once. `rows` (distinct point ids) restricts
+    which cells are computed; n_certified counts them."""
+    _not_ported(mesh)
+    yield from _contacts_frames(pos_batch, box_ls, num, rows, tiers, row_block, fallback_k,
+                                cell_impl, device, dense=True)
