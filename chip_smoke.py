@@ -90,15 +90,20 @@ Phases (each raises on failure; nothing is caught):
    12,294 points (the window form with `_suggest_win`'s window, its full
    scan at k 256 on 64 rows, the cell-grid form at k 64), on a 2,048-row
    subset at k 96, 128 and 192 (the escalation grids), at 2,048 waters on
-   the pruned mirror set, and on a planted tie; `voronoi_calc(engine=
+   the pruned mirror set, and on a planted tie, within a window and across
+   cells; the cell-grid form in both its mappings (rows grouped by cell,
+   one warp a row) wherever both fit; `voronoi_calc(engine=
    "device")` on `make_water_box(12288, 32 frames, 6-atom solute)` in two
    chunks of 16 (tier 1 on the cell-grid form; the certified count of each
    tier and the host closes printed), frames 0-1 against Qhull in float64
    (every cell within 1.5e-3) and the host engine, `chunk_frames=1` equal
    to one chunk; `voronoi_calc` at 2,048 waters x 16 frames (tier 1 on
    the window form); each form's time at its main-path launch beside its
-   bound, its plain version and `torch.topk` on the same distances; a warm
-   `voronoi_calc` on the stage clock;
+   bound, its plain version and `torch.topk` on the same distances, and
+   its kernels' own device time (torch.profiler); the cell-grid form also
+   at each escalation tier's real launch in a 16-frame chunk (the rows that
+   reach the tier, its grid and k; equal to the plain version in both
+   mappings); a warm `voronoi_calc` on the stage clock;
 11. the fused cell kernel and the Voronoi contacts slice
    (`_voronoi_cells_phases`, `_voronoi_contacts_phases`):
    `voronoi_cells.cu` against its plain version (flags and face vertex
@@ -107,12 +112,16 @@ Phases (each raises on failure; nothing is caught):
    candidates), on a 2,048-row subset at (40, 96), on the 6^3 cubic lattice
    (the tangency test dedups the interior rows; every cell certified at
    a^3) and with dedup "always" (the plain version is the clip builder);
-   its time beside its bound and plain version; tier-1 cells certified by
+   its time beside its bound and plain version (the kernel's own device
+   time too), also at (40, 96), and 256 of those rows scaled by 2^-20
+   (the kernel's exact-division path); tier-1 cells certified by
    both builders within 1e-5 but where the clip builder's dedup merged a
    small face (named, both within 1.5e-3 of the host cell in float64);
    `voronoi_volumes_hybrid_frames` on the chunk under cell_impl "pallas"
    (the kernel serves tier 1 alone, one launch) and "clip", against each
-   other and Qhull, and a warm call of each on the stage clock;
+   other and Qhull, and a warm call of each on the stage clock; one more
+   warm "pallas" call under torch.profiler: device time by kernel name and
+   the card's busy share;
    `voronoi_contacts_hybrid_frames` at 12,294 points x 16
    frames x rows 0-511 under both, against each other, frames 0-1 against
    the host Qhull contacts in float64 (entries within 5e-2, or once the
@@ -1427,6 +1436,106 @@ def _vor_cmp(label, kern, plain, args, errs):
     return got
 
 
+def _vor_cmp_mappings(label, args, errs):
+    """The cell-grid kernel against its plain version, exactly, in the
+    mapping the wrapper picks for these rows and, where its staged cells
+    fit a block, in the other one (rows grouped by cell, or one warp a row).
+    Returns the picked mapping's output and its name."""
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
+
+    ck, cp = vtopk.voronoi_cellgrid_topk, vtopk.voronoi_cellgrid_topk_plain
+    centers, _, _, tbl_idx, n_side, _ = args
+    picked = vtopk._cellgrid_grouped(centers.shape[1], n_side, tbl_idx.shape[-1])
+    names = {True: "grouped", False: "direct"}
+    got = _vor_cmp(f"{label}, {names[picked]} mapping (picked)", ck, cp, args, errs)
+    if picked or vtopk.grouped_smem(tbl_idx.shape[-1]) <= vtopk.SMEM_MAX:
+        pick = vtopk._cellgrid_grouped
+        vtopk._cellgrid_grouped = lambda *_: not picked
+        try:
+            _vor_cmp(f"{label}, {names[not picked]} mapping", ck, cp, args, errs)
+        finally:
+            vtopk._cellgrid_grouped = pick
+    return got, names[picked]
+
+
+def _captured_cellgrid(fn):
+    """Run fn; the arguments of every cell-grid search launch it made (each
+    launch runs as usual, and the kernel's count is left alone)."""
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
+
+    real, seen = vtopk.voronoi_cellgrid_topk, []
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    record.launches = 0  # the wrapper counts its launches on the module's name for it
+    vtopk.voronoi_cellgrid_topk = record
+    try:
+        fn()
+    finally:
+        vtopk.voronoi_cellgrid_topk = real
+    return seen
+
+
+def _device_us(ev):
+    t = getattr(ev, "self_device_time_total", None)
+    return t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+
+
+def _is_kernel(ev):
+    """A device activity (a kernel or a copy), not a host operator."""
+    kind = getattr(ev, "device_type", None)
+    if kind is not None:
+        return "CUDA" in str(kind)
+    return not ev.key.startswith(("aten::", "cuda"))
+
+
+def _device_ms(fn, args, name, calls=3):
+    """Device time of the kernels whose name holds `name` in one warm call of
+    fn(*args) (torch.profiler, the mean over `calls` calls): the kernel
+    alone, without its wrapper's own PyTorch work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    return sum(_device_us(ev) for ev in prof.key_averages()
+               if _is_kernel(ev) and name in ev.key) / 1e3 / calls
+
+
+def _profile_line(label, fn, top=8, named=("cellgrid_", "voronoi_cells_kernel")):
+    """One warm call of fn under torch.profiler: device time by kernel name
+    (the `top` largest, and every kernel whose name holds one of `named`),
+    their sum against the call's wall time (the card's busy share), printed
+    as one line. Returns {name: ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        if _is_kernel(ev) and _device_us(ev) > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + _device_us(ev) / 1e3
+    busy = sum(by_name.values())
+    top_k = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    top_k += [kv for kv in by_name.items() if kv not in top_k and any(n in kv[0] for n in named)]
+    _check(busy > 0, f"{label}: the profiler saw no device time")
+    print(f"[profile] {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms ({busy / wall:.1%}; "
+          f"idle {1 - busy / wall:.1%}) in {len(by_name)} kernels; largest: "
+          + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top_k), flush=True)
+    return by_name
+
+
 def _vor_window_args(vd, centers, ext, k, row_block, win):
     """The window kernel's arguments as _windowed_topk makes them."""
     import torch
@@ -1534,13 +1643,13 @@ def _voronoi_kernel_checks(card, kernels, errs):
     cg = vd._suggest_cellgrid(n, box_l, 64)
     _check(cg is not None, f"no cell grid at {n} points")
     args, _ = _vor_cellgrid_args(vd, pts, ext, box_t, 64, cg)
-    _vor_cmp(f"{n} points, k 64, grid {cg}", ck, cp, args, errs)
+    _vor_cmp_mappings(f"{n} points, k 64, grid {cg}", args, errs)
     sub = torch.as_tensor(rs.choice(n, VOR_SUBSET, replace=False), device=dev)
     for ks in (96, 128, 192):
         cg2 = vd._suggest_cellgrid(n, box_l, ks, s_factor=1.4)
         _check(cg2 is not None, f"no escalation grid at k {ks}")
         args, _ = _vor_cellgrid_args(vd, pts[:, sub], ext, box_t, ks, cg2)
-        _vor_cmp(f"{VOR_SUBSET}-row subset, k {ks}, grid {cg2}", ck, cp, args, errs)
+        _vor_cmp_mappings(f"{VOR_SUBSET}-row subset, k {ks}, grid {cg2}", args, errs)
     _, traj2, heavy2, _ = _vor_system(VOR_SMALL, 1, 8)
     box2 = float(traj2.boxes[0][0])
     pts2 = torch.as_tensor(traj2.positions[0][heavy2], dtype=torch.float32, device=dev)[None]
@@ -1562,6 +1671,21 @@ def _voronoi_kernel_checks(card, kernels, errs):
                    (c, e, torch.zeros((1, 1), dtype=torch.int32, device=dev), 3, 8, 64), errs)
     _check(got[1][0, 0].tolist() == [3, 7, 40] and bool((got[0][0, :, :3] == 1.0).all()),
            f"planted tie: lanes {got[1][0, 0].tolist()}, not [3, 7, 40]")
+    # the tie across cells (tests/test_torch_voronoi_topk.py): three
+    # candidates at distance 1 in cells 20 (slot 1), 4 (slots 2 and 0) of a
+    # 3x3x3 grid and a coincident one in the row's own cell 13 (dropped):
+    # cells in lane order, then slots, win
+    tbl = torch.full((1, 27, 3, 4), float("inf"), device=dev)
+    ids = torch.full((1, 27, 4), -1, dtype=torch.int32, device=dev)
+    for cell, slot, xyz, cid in ((20, 1, (0.0, 0.0, 1.0), 5), (4, 2, (0.0, 1.0, 0.0), 9),
+                                 (4, 0, (1.0, 0.0, 0.0), 2), (13, 0, (0.0, 0.0, 0.0), 7)):
+        tbl[0, cell, :, slot] = torch.tensor(xyz, device=dev)
+        ids[0, cell, slot] = cid
+    got, _ = _vor_cmp_mappings("a planted cross-cell tie", (
+        c[:, :1].contiguous(), torch.tensor([[13]], dtype=torch.int32, device=dev), tbl, ids, 3, 4),
+        errs)
+    _check(got[1][0, 0].tolist() == [2, 9, 5, -1] and got[0][0, 0, :3].tolist() == [1.0] * 3,
+           f"planted cross-cell tie: ids {got[1][0, 0].tolist()}, not [2, 9, 5, -1]")
     del pts, ext, pts2, ext2
     torch.cuda.empty_cache()
 
@@ -1718,13 +1842,38 @@ def _voronoi_phases(card, kernels, errs, launches, times):
         ms = _ms(kern, args, 5)
         plain_ms = _ms(plain, args, 1)
         lib_ms = _ms(lambda x: torch.topk(x, 64, largest=False), (dsq,), 5)
+        alone = _device_ms(kern, args, "topk_kernel" if name == "voronoi_window_topk"
+                           else "cellgrid_")
         bound, bound_by = _vor_bound_ms(lanes, in_bytes, rows, 64)
         times[name] = (ms, plain_ms, bound, bound_by, lib_ms)
         print(f"[time] {name}, tier 1 of a {args[0].shape[0]}-frame batch ({shape}, {lanes} "
-              f"lanes): kernel {ms:.5f} ms, plain {plain_ms:.3f} ms, torch.topk on the "
-              f"{tuple(dsq.shape)} distances {lib_ms:.5f} ms, bound {bound:.5f} ms ({bound_by}); "
-              f"{card}", flush=True)
+              f"lanes): kernel {ms:.5f} ms (its kernels alone on the card {alone:.5f} ms), plain "
+              f"{plain_ms:.3f} ms, torch.topk on the {tuple(dsq.shape)} distances {lib_ms:.5f} "
+              f"ms, bound {bound:.5f} ms ({bound_by}); {card}", flush=True)
         del dsq
+    # the escalation tiers of a 16-frame chunk at their own shapes: the rows
+    # that reach each tier, its grid (_suggest_cellgrid, s_factor 1.4) and k
+    seen = _captured_cellgrid(lambda: vd.voronoi_volumes_hybrid_frames(
+        traj.positions[:16][:, heavy], traj.boxes[:16, 0].astype(np.float64), nw, device="cuda"))
+    _check(len(seen) >= 2 and seen[0][5] == 64,
+           f"the chunk's cell-grid launches: k {[a[5] for a in seen]}")
+    for args in seen[1:]:
+        centers, _, _, tbl_idx, n_side, k = args
+        rows, grid = centers.shape[0] * centers.shape[1], (n_side, tbl_idx.shape[-1])
+        _, mapping = _vor_cmp_mappings(f"escalation tier k {k} of a 16-frame chunk, {rows} rows, "
+                                       f"grid {grid}", args, errs)
+        lanes, dsq = _vor_cellgrid_lanes(args), _vor_dsq_cellgrid(args)
+        ms, plain_ms = _ms(ck, args, 5), _ms(cp, args, 1)
+        alone = _device_ms(ck, args, "cellgrid_")
+        lib_ms = _ms(lambda x, k=k: torch.topk(x, k, largest=False), (dsq,), 5)
+        bound, bound_by = _vor_bound_ms(lanes, 16 * rows + 16 * tbl_idx.numel(), rows, k)
+        print(f"[time] voronoi_cellgrid_topk, escalation tier k {k} of a 16-frame chunk ({rows} "
+              f"rows, {centers.shape[1]} a frame, x 27 cells of cap {grid[1]}, grid {grid}, "
+              f"{mapping} mapping, {lanes} lanes): kernel {ms:.5f} ms (alone on the card "
+              f"{alone:.5f} ms), plain {plain_ms:.3f} ms, torch.topk on the {tuple(dsq.shape)} "
+              f"distances {lib_ms:.5f} ms, bound {bound:.5f} ms ({bound_by}); {card}", flush=True)
+        del dsq
+    del seen
     last_args = _vor_window_args(vd, pb[:1, torch.arange(VOR_LAST_ROWS, device=dev) * 97],
                                  vd.mirror_points_device(pb[:1], bl[:1]), 256, VOR_LAST_ROWS,
                                  4 * len(heavy))
@@ -1876,12 +2025,13 @@ def _voronoi_cells_phases(card, kernels, errs, launches, times):
                      args, "auto", errs)
     ms = _ms(kk, (*args, 1e-4), 5)
     plain_ms = _ms(kp, (*args, 1e-4), 1)
+    alone = _device_ms(kk, (*args, 1e-4), "voronoi_cells_kernel")
     bound, bound_by = _cells_bound_ms(args, got)
     times["voronoi_cells"] = (ms, plain_ms, bound, bound_by, None)
     print(f"[time] voronoi_cells, tier 1 of a {VOR_CHUNK}-frame chunk ({args[0].shape[0]} rows, (32, 64), "
           f"{int(args[2].sum())} boundary rows, {float(got['face_nverts'].sum()) / 2:.0f} edges): "
-          f"kernel {ms:.5f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by}); no "
-          f"library call computes it; {card}", flush=True)
+          f"kernel {ms:.5f} ms (alone on the card {alone:.5f} ms), plain {plain_ms:.3f} ms, bound "
+          f"{bound:.5f} ms ({bound_by}); no library call computes it; {card}", flush=True)
     # tier-1 cells certified by both builders
     _builders_agree(args, d_far, got, vd._clip_cells(args[0], args[1], 32, 1e-4))
     # dedup "always": the plain version is the clip builder itself
@@ -1892,7 +2042,21 @@ def _voronoi_cells_phases(card, kernels, errs, launches, times):
     rs = np.random.RandomState(4)
     rows = torch.as_tensor(rs.choice(nw, VOR_SUBSET, replace=False), device=dev)
     wide, _, cgw = _cells_args(vd, pb[:1], bl[:1], 40, 96, rows=rows)
-    _cells_cmp(f"{VOR_SUBSET}-row subset at (40, 96), grid {cgw}", wide, "auto", errs)
+    wgot = _cells_cmp(f"{VOR_SUBSET}-row subset at (40, 96), grid {cgw}", wide, "auto", errs)
+    wms, wplain = _ms(kk, (*wide, 1e-4), 5), _ms(kp, (*wide, 1e-4), 1)
+    walone = _device_ms(kk, (*wide, 1e-4), "voronoi_cells_kernel")
+    wbound, wby = _cells_bound_ms(wide, wgot)
+    print(f"[time] voronoi_cells, the {VOR_SUBSET}-row subset at (40, 96) (grid {cgw}, "
+          f"{int(wide[2].sum())} boundary rows): kernel {wms:.5f} ms (alone on the card "
+          f"{walone:.5f} ms), plain {wplain:.3f} ms, bound {wbound:.5f} ms ({wby}); {card}",
+          flush=True)
+    del wgot
+    # the kernel's exact-division path: candidates scaled by 2^-20 put s_m
+    # below the fast division's range (2^-30), so every pair divides with `/`
+    tiny = ((wide[0][:256] * 2.0 ** -20).contiguous(), wide[1][:256], wide[2][:256], 40)
+    _cells_cmp("256 rows at (40, 96) scaled by 2^-20 (the exact-division path)", tiny, "auto",
+               errs)
+    del tiny
     # the 6^3 cubic lattice: degenerate vertices everywhere
     a, ng = 3.0, 6
     g = np.arange(ng) * a + a / 2.0
@@ -1946,6 +2110,11 @@ def _voronoi_cells_phases(card, kernels, errs, launches, times):
     for impl in ("pallas", "clip"):
         _stages(f"voronoi_volumes_hybrid_frames, cell_impl {impl}",
                 lambda d: vd.voronoi_volumes_hybrid_frames(pos16, box16, nw, cell_impl=impl,
+                                                           device="cuda"))
+    # the card's view of one warm chunk: kernel time by name, busy share
+    _profile_line(f"voronoi_volumes_hybrid_frames {len(heavy)} points x {VOR_CHUNK} frames, "
+                  f"cell_impl pallas (warm); {card}",
+                  lambda: vd.voronoi_volumes_hybrid_frames(pos16, box16, nw, cell_impl="pallas",
                                                            device="cuda"))
     del pb, bl
     torch.cuda.empty_cache()

@@ -240,3 +240,38 @@ def test_triple_hybrid_and_warning_once(caplog):
     np.testing.assert_allclose(vt, vc_, rtol=2e-4)
     np.testing.assert_allclose(at, ac_, rtol=2e-4)
     assert tvd._tiers_for("triple", tvd.DEFAULT_TIERS) == tvd.DEFAULT_TIERS[:3]
+
+
+def test_pair_table_is_pair_tables():
+    """The kernel's pair table (i | j << 8 a pair) lists `_pair_tables(k)`'s
+    pairs in its order, the port's and the JAX package's, for k = 2..48; the
+    kernel's closed form for face f's slot e (the other plane e, or e + 1
+    from e = f on; the pair id i (2k - i - 1) / 2 + j - i - 1) gives its
+    face_pairs and face_other."""
+    for k in range(2, vc.MAX_K + 1):
+        prs, face_pairs, face_other = tvd._pair_tables(k)
+        np.testing.assert_array_equal(prs, np.asarray(jvd._pair_tables(k)[0]))
+        tbl = vc.pair_table(k)
+        assert tbl.dtype == np.int32 and tbl.shape == (k * (k - 1) // 2,)
+        np.testing.assert_array_equal(np.stack([tbl & 0xFF, tbl >> 8], 1), prs)
+        for f in range(k):
+            for e in range(k - 1):
+                o = e if e < f else e + 1
+                i, j = min(f, o), max(f, o)
+                assert face_other[f, e] == o
+                assert face_pairs[f, e] == i * (2 * k - i - 1) // 2 + j - i - 1
+
+
+def test_shared_memory_fits_every_accepted_shape():
+    """The dynamic shared memory the wrapper asks for, rows_per_block(k, ks)
+    rows of row_bytes(k, ks), stays within one block's 232,448 B for every
+    (k, ks) the checks accept; (32, 64) takes 13,504 B a row, one row a
+    block (16 an SM), as does (40, 96) (10 an SM)."""
+    assert vc.SMEM_MAX == 232_448
+    for k in range(2, vc.MAX_K + 1):
+        for ks in range(k, vc.MAX_KS + 1):
+            r = vc.rows_per_block(k, ks)
+            assert r in (1, 2, 4) and r * vc.row_bytes(k, ks) <= vc.SMEM_MAX, (k, ks)
+            assert vc.row_bytes(k, ks) % 16 == 0
+    assert vc.row_bytes(32, 64) == 13_504 and vc.rows_per_block(32, 64) == 1
+    assert vc.rows_per_block(40, 96) == 1

@@ -274,3 +274,136 @@ def test_wrappers_check_their_inputs():
     vtopk.voronoi_cellgrid_topk(c[:, :1], cid, tbl, ids, 3, 3)
     assert vtopk.voronoi_cellgrid_topk_plain.calls == calls + 1
     assert (vtopk.voronoi_window_topk.launches, vtopk.voronoi_cellgrid_topk.launches) == before
+
+
+# --- the cell-grid kernel's grouped mapping, around the plain selection -----
+
+
+def _grouped_emulation(centers, cid, tbl_pos, tbl_idx, n_side, k):
+    """csrc/voronoi_topk.cu's grouped mapping with a plain selection: the
+    wrapper's row order (`_cellgrid_order`), GROUP_ROWS sorted rows a
+    block; per run of one frame and cell among them, its 27 neighbors
+    staged in SCAN_ORDER, only slots with finite coordinates, each tagged
+    with its lane o * cap + slot; per row of the run the k smallest dsq over
+    the staged slots, ties to the lowest lane; the results written to the
+    row's own place (the inverse of the sort by cell)."""
+    F, R, _ = centers.shape
+    cap = tbl_idx.shape[-1]
+    order, flat_cid = vtopk._cellgrid_order(cid).numpy(), cid.reshape(-1).numpy()
+    offs = vtopk._offsets(n_side)
+    dist = torch.full((F * R, k), float("inf"), dtype=centers.dtype)
+    idx = torch.full((F * R, k), -1, dtype=torch.int32)
+    done = np.zeros(F * R, int)
+    for first in range(0, F * R, vtopk.GROUP_ROWS):
+        last, a = min(first + vtopk.GROUP_ROWS, F * R), first
+        while a < last:
+            f, c0 = order[a] // R, int(flat_cid[order[a]])
+            b = a + 1
+            while b < last and order[b] // R == f and flat_cid[order[b]] == c0:
+                b += 1
+            rows, a = order[a:b], b
+            xyz, lanes, ids = [], [], []
+            for o in vtopk.SCAN_ORDER:
+                planes = tbl_pos[f, c0 + offs[o]]  # (3, cap)
+                slots = torch.nonzero(torch.isfinite(planes).all(0))[:, 0]
+                xyz.append(planes[:, slots])
+                lanes.append(o * cap + slots)
+                ids.append(tbl_idx[f, c0 + offs[o], slots])
+            x, y, z = torch.cat(xyz, 1)
+            lanes, ids = torch.cat(lanes).numpy(), torch.cat(ids)
+            dsq = vtopk._dsq(centers.reshape(-1, 3)[torch.as_tensor(rows)], x, y, z)
+            for n, row in enumerate(rows):
+                keep = ((dsq[n] > 0) & torch.isfinite(dsq[n])).numpy()
+                d = dsq[n].numpy()[keep]
+                pick = np.lexsort((lanes[keep], d))[:k]  # by dsq, then lane
+                dist[row, :len(pick)] = vtopk._sqrt(torch.as_tensor(d[pick]))
+                idx[row, :len(pick)] = ids[torch.as_tensor(np.nonzero(keep)[0][pick])]
+                done[row] += 1
+    assert (done == 1).all()
+    return dist.reshape(F, R, k), idx.reshape(F, R, k)
+
+
+def _grid_case(name):
+    """(centers, cid, tbl_pos, tbl_idx, n_side, k) of a fixture: "tier1" a
+    small box's tier-1 shape (1,200 points, 2 frames, grid (5, 96): ~44
+    rows to an inner cell), "escalation" a sparse subset of it (40 rows and
+    24 bucket-padding copies of the first, 3 frames, k 96 at grid (6, 96):
+    one row to an inner cell; three cells of the table emptied), "tie" the
+    planted cross-cell tie."""
+    if name == "tie":
+        tbl = torch.full((1, 27, 3, 4), float("inf"))
+        ids = torch.full((1, 27, 4), -1, dtype=torch.int32)
+        for cell, slot, xyz, c in ((20, 1, (0.0, 0.0, 1.0), 5), (4, 2, (0.0, 1.0, 0.0), 9),
+                                   (4, 0, (1.0, 0.0, 0.0), 2), (13, 0, (0.0, 0.0, 0.0), 7)):
+            tbl[0, cell, :, slot] = torch.tensor(xyz)
+            ids[0, cell, slot] = c
+        return torch.zeros((1, 1, 3)), torch.tensor([[13]], dtype=torch.int32), tbl, ids, 3, 4
+    pts, box_l = _water_points(1200, seed=3)
+    frames = 2 if name == "tier1" else 3
+    pb = torch.from_numpy(np.stack([(pts + 0.37 * f) % box_l for f in range(frames)]))
+    box = torch.full((frames,), box_l)
+    n_side, cap, k = (5, 96, 32) if name == "tier1" else (6, 96, 96)
+    pos, ids, _, _, s = tvd._cellgrid_build(tvd.mirror_points_device(pb, box), box, n_side, cap)
+    if name == "escalation":
+        rows = np.random.RandomState(5).choice(1200, 40, replace=False)
+        pb = pb[:, torch.as_tensor(np.concatenate([rows, np.full(24, rows[0])]))].contiguous()
+        for cell in (31, 62, 93):
+            pos[:, cell], ids[:, cell] = float("inf"), -1
+    _, cid = tvd._cellgrid_rows(pb, s, n_side)
+    return pb, cid, pos, ids, n_side, k
+
+
+@pytest.mark.parametrize("case", ["tier1", "escalation", "tie"])
+def test_cellgrid_grouping_matches_plain(case):
+    """The grouped mapping's decomposition (rows sorted by cell, each run of
+    one cell in a block's rows staged once without its empty slots, read in
+    SCAN_ORDER, ties by lane) gives exactly `voronoi_cellgrid_topk_plain`'s
+    dist and idx: at a tier-1 shape, on a sparse escalation subset with
+    padding rows and empty cells, and on the planted cross-cell tie."""
+    args = _grid_case(case)
+    want = vtopk.voronoi_cellgrid_topk_plain(*args)
+    got = _grouped_emulation(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "tie":
+        assert got[1][0, 0].tolist() == [2, 9, 5, -1]
+    if case == "tier1":  # the wrapper picks this mapping here, and not on the subset
+        assert vtopk._cellgrid_grouped(args[0].shape[1], 5, 96)
+    if case == "escalation":
+        assert not vtopk._cellgrid_grouped(args[0].shape[1], 6, 96)
+
+
+def test_cellgrid_order_sorts_each_frame_by_cell():
+    """`_cellgrid_order`: every row once, each frame's rows in a block of
+    their own, sorted stably by cell (a long run of one cell, the bucket
+    padding's copies, stays in row order)."""
+    rs = np.random.RandomState(2)
+    for F, R, n_side in ((1, 1, 3), (3, 200, 5), (2, 700, 10), (4, 64, 6)):
+        cid = torch.as_tensor(rs.randint(0, min(8, n_side ** 3), size=(F, R)), dtype=torch.int32)
+        cid[0, : R // 2] = cid[0, 0]
+        order = vtopk._cellgrid_order(cid).long()
+        assert order.dtype == torch.int64 and sorted(order.tolist()) == list(range(F * R))
+        assert ((order // R).reshape(F, R) == torch.arange(F)[:, None]).all()
+        keys = cid.reshape(-1)[order].reshape(F, R)
+        assert (keys[:, 1:] >= keys[:, :-1]).all()
+        runs = order.reshape(F, R)
+        same = keys[:, 1:] == keys[:, :-1]
+        assert (runs[:, 1:][same] > runs[:, :-1][same]).all()
+
+
+def test_cellgrid_shared_memory_fits():
+    """The grouped mapping is picked only where its dynamic shared memory
+    fits one block (232,448 B) and its tags (lane << 16 | position) fit;
+    the direct one needs none beyond its static buffers; every k the
+    checks admit has its list size (32, 64, 128 or 256 keys)."""
+    assert vtopk.SMEM_MAX == 232_448
+    assert sorted(vtopk.SCAN_ORDER) == list(range(27)) and vtopk.SCAN_ORDER[0] == 13
+    for cap in range(1, 600):
+        picked = vtopk._cellgrid_grouped(10 ** 6, 5, cap)
+        assert picked == (vtopk.grouped_smem(cap) <= vtopk.SMEM_MAX)
+        if picked:
+            assert 27 * cap <= 0xFFFF
+    assert vtopk.grouped_smem(64) == 38_768 and vtopk._cellgrid_grouped(10 ** 6, 5, 422)
+    assert not vtopk._cellgrid_grouped(10 ** 6, 5, 423)
+    assert not vtopk._cellgrid_grouped(vtopk.GROUP_MIN * 8 ** 3 - 1, 10, 64)
+    for k in range(1, vtopk.MAX_K + 1):
+        vtopk._check_k(k)

@@ -34,6 +34,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+SMEM_MAX = 232_448  # bytes of shared memory one block may use on the H100 (sm_90)
+
 _LOADED: dict[str, ctypes.CDLL] = {}
 # nvcc's stderr (the ptxas report) of each source built in this process
 BUILD_LOG: dict[str, str] = {}

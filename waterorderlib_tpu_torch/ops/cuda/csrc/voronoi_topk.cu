@@ -28,26 +28,48 @@
 // sorted array (mapped back through the z-argsort by the caller). win = P
 // with every start 0 is the full scan.
 //
-// `voronoi_cellgrid_topk_launch`: each row walks the 27 cells around its
-// (clamped) grid cell in the order dz, dy, dx in (-1, 0, 1), and in each
-// cell the `cap` slots of the bucketed table in table order; the payload is
-// the table's int32 candidate id. The table is read as it is, not expanded
-// 27-fold as the TPU's lane layout needed.
+// `voronoi_cellgrid_topk_launch`: each row takes the 27 cells around its
+// (clamped) grid cell, lane o * cap + slot for slot `slot` of neighbor o (o
+// in the order dz, dy, dx in (-1, 0, 1)); the payload is the table's int32
+// candidate id. The table is read as it is, not expanded 27-fold as the
+// TPU's lane layout needed.
 //
-// What bounds it on this card: instructions, not bytes. The distance is 9
-// float32 operations per (row, lane); the selection is a ballot per 32
-// lanes, and for each lane that beats the current k-th distance an insertion
-// into the row's sorted list (a ballot per 32 entries to find its place, a
-// shift of the entries behind it). Most lanes fail the k-th distance once
-// the list is full, so the insertions are some k (1 + ln(lanes / k)) a row.
+// The z-window form (unchanged since it was ported). What bounds it on this
+// card: instructions, not bytes. The distance is 9 float32 operations per
+// (row, lane); the selection is a ballot per 32 lanes, and for each lane
+// that beats the current k-th distance an insertion into the row's sorted
+// list (a ballot per 32 entries to find its place, a shift of the entries
+// behind it). Most lanes fail the k-th distance once the list is full, so
+// the insertions are some k (1 + ln(lanes / k)) a row. Launch: one warp per
+// row, kWarps rows per block; each row's list, up to kMaxK (dsq, payload)
+// pairs, in shared memory; it stages kTile candidates of the block's window
+// in shared memory once for its rows (a block's rows lie in one row block,
+// so they share one window). Frames are the slowest grid dimension: a frame
+// batch is one launch.
 //
-// Launch: one warp per row, kWarps rows per block; each row's list, up to
-// kMaxK (dsq, payload) pairs, in shared memory. The window form stages
-// kTile candidates of the block's window in shared memory once for its
-// rows (a block's rows lie in one row block, so they share one window).
-// The cell-grid form reads its table slots from device memory (a frame's
-// table is some 1 MB at 12,288 atoms and stays in L2). Frames are the
-// slowest grid dimension: a frame batch is one launch.
+// The cell-grid form. What bounds it on this card: the selection's
+// instructions. The lanes cost 9 float32 operations each (~650 filled
+// lanes a row at tier 1, 27 cells of ~24 candidates), the bytes are the
+// 100 MB of dist and idx a tier-1 launch writes; what a row pays beyond
+// those is the work of keeping its k smallest. The design:
+// - No serial insertion: a lane below the row's k-th key goes into a
+//   buffer; every 32 buffered keys are sorted across the warp (a bitonic
+//   sort of one key a lane) and merged into the row's sorted list of 32R >=
+//   k keys, which lives in registers (WarpSelect). A key packs dsq's bits
+//   and the lane, so equal distances keep lane order. Cells are read
+//   nearest first (the wrapper's `scan` order: the row's own cell, its 6
+//   face neighbors, 12 edge, 8 corner), so the k-th key falls early: ~5
+//   merges a row at tier 1.
+// - Rows grouped by cell (where a frame's rows are at least GROUP_MIN = 16
+//   to a cell, tier 1): the wrapper sorts the rows by cell; a block takes
+//   GROUP_ROWS = 32 sorted rows and stages the 27-cell neighborhood of each
+//   run of one cell among them in shared memory once, empty slots dropped,
+//   so a neighborhood is read from L2 about once a block, not once a row.
+//   Elsewhere (the escalation tiers, about one row to a cell) one warp a
+//   row reads its cells from L2 (a frame's table is some 1 MB).
+// - Buffers are sized from the launch: the list from k (R = 1, 2, 4 or 8
+//   registers of keys), the staged neighborhood from cap (dynamic shared
+//   memory, 38,768 B at cap 64).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -172,16 +194,248 @@ window_topk_kernel(const float* __restrict__ centers, int n_rows, int row_block,
   if (active) emit(ld, lp, cnt, k, dist + row * k, pos + row * k);
 }
 
-// centers (F, n_rows, 3); cid (F, n_rows) each row's clamped cell; tbl_pos
-// (F, n_cells, 3, cap) the planes x, y, z of each cell's slots (+inf where
-// empty); tbl_idx (F, n_cells, cap) the candidate ids (-1 where empty).
+// --- the cell-grid form -----------------------------------------------------
+
+typedef unsigned long long u64;
+constexpr u64 kSent = ~0ull;  // an empty entry: above every real key
+constexpr int kBuf = 64;      // a warp's keys waiting for a merge (at most 63)
+
+__device__ __forceinline__ u64 umin64(u64 a, u64 b) { return a < b ? a : b; }
+__device__ __forceinline__ u64 umax64(u64 a, u64 b) { return a < b ? b : a; }
+
+// One row's selection, run by a warp. A key is (dsq bits << 32) | tag, the
+// tag rising with the lane (a positive float's bits order as an unsigned
+// integer), so ascending keys are the stable ascending sort of dsq. L holds
+// the 32 R smallest keys merged so far, ascending, entry i in register i / 32
+// of lane i % 32; thr is its entry k - 1, and a key at or above thr cannot be
+// among the k smallest. Keys below thr wait in the warp's buffer; every 32 of
+// them are sorted (a bitonic sort over the lanes) and merged into L (the
+// lower half of L and the reversed 32 is bitonic; a bitonic merge sorts it).
+template <int R>
+struct WarpSelect {
+  u64 L[R];
+  u64 thr;
+  int cnt;  // keys in buf, the same in every lane
+  u64* buf;
+  int k;
+
+  __device__ __forceinline__ void init(u64* b, int k_) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) L[r] = kSent;
+    thr = kSent;
+    cnt = 0;
+    buf = b;
+    k = k_;
+  }
+
+  // merge 32 keys, one a lane in no order, into L
+  __device__ __forceinline__ void merge(u64 v) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+      for (int d = size >> 1; d > 0; d >>= 1) {
+        const u64 o = __shfl_xor_sync(kFull, v, d);
+        v = (((lane & d) == 0) == ((lane & size) == 0)) ? umin64(v, o) : umax64(v, o);
+      }
+    }
+    const u64 rv = __shfl_sync(kFull, v, 31 - lane);
+    L[R - 1] = umin64(L[R - 1], rv);
+#pragma unroll
+    for (int dr = R / 2; dr > 0; dr >>= 1) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if ((r & dr) == 0) {
+          const u64 a = L[r], b = L[r + dr];
+          L[r] = umin64(a, b);
+          L[r + dr] = umax64(a, b);
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const u64 o = __shfl_xor_sync(kFull, L[r], d);
+        L[r] = (lane & d) ? umax64(L[r], o) : umin64(L[r], o);
+      }
+    }
+    u64 t = L[0];
+#pragma unroll
+    for (int r = 1; r < R; ++r)
+      if (r == ((k - 1) >> 5)) t = L[r];
+    thr = __shfl_sync(kFull, t, (k - 1) & 31);
+  }
+
+  // each lane's key, if `real`: into the buffer when below thr
+  __device__ __forceinline__ void offer(bool real, u64 key) {
+    const int lane = threadIdx.x & 31;
+    const bool s = real && key < thr;
+    const unsigned m = __ballot_sync(kFull, s);
+    if (m == 0) return;
+    if (s) buf[cnt + __popc(m & ((1u << lane) - 1u))] = key;
+    cnt += __popc(m);
+    if (cnt >= 32) {
+      __syncwarp();
+      const u64 v = buf[lane];
+      const u64 w = buf[32 + lane];
+      __syncwarp();
+      if (lane < cnt - 32) buf[lane] = w;
+      cnt -= 32;
+      merge(v);
+    }
+  }
+
+  __device__ __forceinline__ void flush() {
+    if (cnt == 0) return;
+    const int lane = threadIdx.x & 31;
+    __syncwarp();
+    const u64 v = lane < cnt ? buf[lane] : kSent;
+    __syncwarp();
+    cnt = 0;
+    merge(v);
+  }
+};
+
+// flat offset of neighbor o (dz, dy, dx = o / 9, o / 3 % 3, o % 3, each - 1)
+__device__ __forceinline__ int cell_offset(int o, int n_side) {
+  return ((o / 9 - 1) * n_side + (o / 3) % 3 - 1) * n_side + o % 3 - 1;
+}
+
+__device__ __forceinline__ float dsq_of(float cx, float cy, float cz, float x, float y, float z) {
+  const float dx = cx - x, dy = cy - y, dz = cz - z;
+  return (dx * dx + dy * dy) + dz * dz;
+}
+
+__device__ __forceinline__ bool finite3(float x, float y, float z) {
+  return isfinite(x) && isfinite(y) && isfinite(z);
+}
+
+// Grouped: the rows sorted by cell (`order`: each frame's rows, stably by
+// their clamped cell, as global row ids), a block takes `group_rows`
+// consecutive ones and, for each run of them in one cell of one frame,
+// stages the 27 cells' slots with finite coordinates in shared memory once,
+// cells in the order `scan`, slots in table order, each with its tag lane
+// << 16 | staged position (lane = o * cap + slot, the plain version's lane);
+// a slot left out has dsq +inf or NaN for every center, which the
+// selection drops. Then each warp scans the staged slots for a row of the
+// run at a time.
+template <int R>
 __global__ void __launch_bounds__(kThreads)
-cellgrid_topk_kernel(const float* __restrict__ centers, const int* __restrict__ cid, int n_rows,
-                     int n_frames, const float* __restrict__ tbl_pos,
-                     const int* __restrict__ tbl_idx, int n_side, int cap, int k,
-                     float* __restrict__ dist, int* __restrict__ idx) {
-  __shared__ float s_d[kWarps][kMaxK];
-  __shared__ int s_p[kWarps][kMaxK];
+cellgrid_grouped_kernel(const float* __restrict__ centers, const int* __restrict__ cid, int n_rows,
+                        int n_frames, const float* __restrict__ tbl_pos,
+                        const int* __restrict__ tbl_idx, int n_side, int cap, int k,
+                        const int* __restrict__ scan, const int* __restrict__ order,
+                        int group_rows, float* __restrict__ dist, int* __restrict__ idx) {
+  extern __shared__ u64 s_buf[];  // kWarps x kBuf keys, then the staged slots and their ids
+  float4* s_pt = reinterpret_cast<float4*>(s_buf + kWarps * kBuf);
+  int* s_id = reinterpret_cast<int*>(s_pt + 27 * cap);
+  __shared__ int s_beg[28];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int total = n_rows * n_frames;
+  const int first = blockIdx.x * group_rows;
+  const int last = min(first + group_rows, total);
+  const long long n_cells = (long long)n_side * n_side * n_side;
+  for (int a = first; a < last;) {
+    // the run [a, b): rows of one frame and one cell (the same in every thread)
+    const int f = order[a] / n_rows;
+    const int c0 = cid[order[a]];
+    int b = a + 1;
+    while (b < last && order[b] / n_rows == f && cid[order[b]] == c0) ++b;
+    const float* tp = tbl_pos + f * n_cells * 3 * cap;
+    const int* ti = tbl_idx + f * n_cells * cap;
+    __syncthreads();  // the previous run's rows are done with the staged slots
+
+    // 1. each cell's finite slots: counts, then their places
+    for (int p = warp; p < 27; p += kWarps) {
+      const float* e = tp + (c0 + cell_offset(scan[p], n_side)) * 3LL * cap;
+      int n = 0;
+      for (int s0 = 0; s0 < cap; s0 += 32) {
+        const int slot = s0 + lane;
+        n += __popc(__ballot_sync(kFull, slot < cap && finite3(e[slot], e[cap + slot],
+                                                                e[2 * cap + slot])));
+      }
+      if (lane == 0) s_beg[p + 1] = n;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      s_beg[0] = 0;
+      for (int p = 0; p < 27; ++p) s_beg[p + 1] += s_beg[p];
+    }
+    __syncthreads();
+    // 2. stage them
+    for (int p = warp; p < 27; p += kWarps) {
+      const int o = scan[p];
+      const long long cell = c0 + cell_offset(o, n_side);
+      const float* e = tp + cell * 3 * cap;
+      int at = s_beg[p];
+      for (int s0 = 0; s0 < cap; s0 += 32) {
+        const int slot = s0 + lane;
+        float x = 0.f, y = 0.f, z = 0.f;
+        bool fin = false;
+        if (slot < cap) {
+          x = e[slot];
+          y = e[cap + slot];
+          z = e[2 * cap + slot];
+          fin = finite3(x, y, z);
+        }
+        const unsigned m = __ballot_sync(kFull, fin);
+        if (fin) {
+          const int j = at + __popc(m & ((1u << lane) - 1u));
+          s_pt[j] = make_float4(x, y, z, __uint_as_float(((unsigned)(o * cap + slot) << 16) | j));
+          s_id[j] = ti[cell * cap + slot];
+        }
+        at += __popc(m);
+      }
+    }
+    __syncthreads();
+    const int n_st = s_beg[27];
+
+    // 3. the run's rows, one a warp at a time
+    for (int t = a + warp; t < b; t += kWarps) {
+      const long long row = order[t];
+      const float cx = centers[3 * row], cy = centers[3 * row + 1], cz = centers[3 * row + 2];
+      WarpSelect<R> ws;
+      ws.init(s_buf + warp * kBuf, k);
+      for (int j0 = 0; j0 < n_st; j0 += 32) {
+        const int j = j0 + lane;
+        bool real = j < n_st;
+        u64 key = kSent;
+        if (real) {
+          const float4 e = s_pt[j];
+          const float d = dsq_of(cx, cy, cz, e.x, e.y, e.z);
+          real = d > 0.f && d < inf_f();
+          key = ((u64)__float_as_uint(d) << 32) | __float_as_uint(e.w);
+        }
+        ws.offer(real, key);
+      }
+      ws.flush();
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int j = r * 32 + lane;
+        if (j < k) {
+          const bool ok = ws.L[r] != kSent;
+          dist[row * k + j] = ok ? sqrtf(__uint_as_float((unsigned)(ws.L[r] >> 32))) : inf_f();
+          idx[row * k + j] = ok ? s_id[ws.L[r] & 0xffffu] : -1;
+        }
+      }
+    }
+    a = b;
+  }
+}
+
+// Direct: one warp a row, reading its 27 cells (in the order `scan`) from
+// device memory, for launches whose rows share few cells (the escalation
+// tiers: about one row to an occupied cell, and cells too large to stage).
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+cellgrid_direct_kernel(const float* __restrict__ centers, const int* __restrict__ cid, int n_rows,
+                       int n_frames, const float* __restrict__ tbl_pos,
+                       const int* __restrict__ tbl_idx, int n_side, int cap, int k,
+                       const int* __restrict__ scan, float* __restrict__ dist,
+                       int* __restrict__ idx) {
+  __shared__ u64 s_buf[kWarps][kBuf];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kWarps + warp;
@@ -192,28 +446,67 @@ cellgrid_topk_kernel(const float* __restrict__ centers, const int* __restrict__ 
   const int* ti = tbl_idx + f * n_cells * cap;
   const int c0 = cid[row];
   const float cx = centers[3 * row], cy = centers[3 * row + 1], cz = centers[3 * row + 2];
-  float* ld = s_d[warp];
-  int* lp = s_p[warp];
-  int cnt = 0;
-
-  const int lanes = 27 * cap;
-  for (int l0 = 0; l0 < lanes; l0 += 32) {
-    const int l = l0 + lane;
-    const bool real = l < lanes;
-    float d = 0.f;
-    int p = -1;
-    if (real) {
-      const int o = l / cap, slot = l - o * cap;
-      const int oz = o / 9 - 1, oy = (o / 3) % 3 - 1, ox = o % 3 - 1;
-      const long long cell = c0 + (oz * n_side + oy) * n_side + ox;
-      const float* e = tp + cell * 3 * cap;
-      const float dx = cx - e[slot], dy = cy - e[cap + slot], dz = cz - e[2 * cap + slot];
-      d = (dx * dx + dy * dy) + dz * dz;
-      p = ti[cell * cap + slot];
+  WarpSelect<R> ws;
+  ws.init(s_buf[warp], k);
+  for (int p = 0; p < 27; ++p) {
+    const int o = scan[p];
+    const float* e = tp + (c0 + cell_offset(o, n_side)) * 3LL * cap;
+    for (int s0 = 0; s0 < cap; s0 += 32) {
+      const int slot = s0 + lane;
+      bool real = slot < cap;
+      u64 key = kSent;
+      if (real) {
+        const float d = dsq_of(cx, cy, cz, e[slot], e[cap + slot], e[2 * cap + slot]);
+        real = d > 0.f && d < inf_f();
+        key = ((u64)__float_as_uint(d) << 32) | (unsigned)(o * cap + slot);
+      }
+      ws.offer(real, key);
     }
-    offer(ld, lp, cnt, k, d, p, real);
   }
-  emit(ld, lp, cnt, k, dist + row * k, idx + row * k);
+  ws.flush();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = r * 32 + lane;
+    if (j < k) {
+      const bool ok = ws.L[r] != kSent;
+      int id = -1;
+      if (ok) {
+        const int l = (int)(ws.L[r] & 0xffffffffu);
+        const int o = l / cap;
+        id = ti[(c0 + cell_offset(o, n_side)) * (long long)cap + (l - o * cap)];
+      }
+      dist[row * k + j] = ok ? sqrtf(__uint_as_float((unsigned)(ws.L[r] >> 32))) : inf_f();
+      idx[row * k + j] = id;
+    }
+  }
+}
+
+// dynamic shared memory of a grouped block: the warps' buffers, the staged
+// slots (x, y, z, tag) and their ids
+__host__ __device__ constexpr long long grouped_smem(int cap) {
+  return (long long)kWarps * kBuf * 8 + 27LL * cap * 20;
+}
+constexpr long long kSmemMax = 232448 - 28 * 4;  // the block's limit, less the static s_beg
+
+template <int R>
+int launch_cellgrid(const float* centers, const int* cid, int n_rows, const float* tbl_pos,
+                    const int* tbl_idx, int n_side, int cap, int k, int n_frames, const int* scan,
+                    const int* order, int group_rows, float* dist, int* idx, cudaStream_t stream) {
+  if (order != nullptr) {
+    const int smem = (int)grouped_smem(cap);
+    cudaError_t e = cudaFuncSetAttribute(cellgrid_grouped_kernel<R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    const long long rows = (long long)n_rows * n_frames;
+    cellgrid_grouped_kernel<R><<<(unsigned)((rows + group_rows - 1) / group_rows), kThreads, smem,
+                                 stream>>>(centers, cid, n_rows, n_frames, tbl_pos, tbl_idx,
+                                           n_side, cap, k, scan, order, group_rows, dist, idx);
+  } else {
+    const long long rows = (long long)n_rows * n_frames;
+    cellgrid_direct_kernel<R><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
+        centers, cid, n_rows, n_frames, tbl_pos, tbl_idx, n_side, cap, k, scan, dist, idx);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -233,16 +526,29 @@ extern "C" int voronoi_window_topk_launch(const float* centers, int n_rows, int 
   return (int)cudaGetLastError();
 }
 
-// The cell-grid form: every row against the 27 cells around cid[f, row].
+// The cell-grid form: every row against the 27 cells around cid[f, row],
+// `scan` (27 ints) the order in which the cells are read. With `order` (the
+// rows sorted by cell, see cellgrid_grouped_kernel) the grouped mapping,
+// `group_rows` sorted rows a block; without it the direct one.
 extern "C" int voronoi_cellgrid_topk_launch(const float* centers, const int* cid, int n_rows,
                                             const float* tbl_pos, const int* tbl_idx,
                                             int n_side, int cap, int k, int n_frames,
+                                            const int* scan, const int* order, int group_rows,
                                             float* dist, int* idx, void* stream) {
   if (k < 1 || k > kMaxK || n_side < 3 || cap < 1) return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)n_rows * n_frames;
-  if (rows == 0) return 0;
-  cellgrid_topk_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
-                         (cudaStream_t)stream>>>(centers, cid, n_rows, n_frames, tbl_pos,
-                                                 tbl_idx, n_side, cap, k, dist, idx);
-  return (int)cudaGetLastError();
+  if (order != nullptr && (group_rows < 1 || grouped_smem(cap) > kSmemMax || 27LL * cap > 0xffff))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)n_rows * n_frames == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (k <= 32)
+    return launch_cellgrid<1>(centers, cid, n_rows, tbl_pos, tbl_idx, n_side, cap, k, n_frames,
+                              scan, order, group_rows, dist, idx, st);
+  if (k <= 64)
+    return launch_cellgrid<2>(centers, cid, n_rows, tbl_pos, tbl_idx, n_side, cap, k, n_frames,
+                              scan, order, group_rows, dist, idx, st);
+  if (k <= 128)
+    return launch_cellgrid<4>(centers, cid, n_rows, tbl_pos, tbl_idx, n_side, cap, k, n_frames,
+                              scan, order, group_rows, dist, idx, st);
+  return launch_cellgrid<8>(centers, cid, n_rows, tbl_pos, tbl_idx, n_side, cap, k, n_frames,
+                            scan, order, group_rows, dist, idx, st);
 }

@@ -35,6 +35,9 @@ from waterorderlib_tpu_torch.ops.cuda import build, window
 MAX_K = 48  # kMaxK in csrc/voronoi_cells.cu: a face's slots are bits of one 64-bit mask
 MAX_KS = 128  # kMaxKS: the row's candidates in shared memory
 DEDUP_MODES = ("auto", "always")
+SMEM_MAX = build.SMEM_MAX
+_SM_SMEM = 233_472  # an SM's shared memory; each block takes 1 KB more than it asks
+_ROWS_PER_BLOCK = (1, 2, 4)  # kMaxRowsPerBlock in csrc/voronoi_cells.cu: 4
 
 _c_int, _c_float, _c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _OUT_KEYS = ("vol", "area", "face_area", "face_nverts", "r_cell", "ok_shape", "closure_err",
@@ -52,6 +55,41 @@ def fits_voronoi_cells(k: int, ks: int) -> bool:
     tables = (2 * ks * pp + pp * f + f + f * k) * 4
     work = (4 * ks * pp + 30 * pp + 12 * f) * 4
     return tables + work <= 12_000_000
+
+
+def row_bytes(k: int, ks: int) -> int:
+    """Shared memory of one row of the kernel (`row_bytes` in the source):
+    its candidates (24 bytes each), its P = C(k, 2) pairs' endpoints (24
+    bytes each) and feasibility bits (P / 32 words), rounded up to 16."""
+    P = k * (k - 1) // 2
+    return -(-(ks * 24 + P * 24 + -(-P // 32) * 4) // 16) * 16
+
+
+def rows_per_block(k: int, ks: int) -> int:
+    """Rows (one warp each) a block takes: the count that puts the most
+    rows on an SM, the smaller on a tie (1 at (32, 64): 16 rows an SM; 1
+    at (40, 96): 10)."""
+    def rows_on_sm(r):
+        return r * (_SM_SMEM // (r * row_bytes(k, ks) + 1024))
+
+    return max(_ROWS_PER_BLOCK, key=lambda r: (rows_on_sm(r), -r))
+
+
+def pair_table(k: int) -> np.ndarray:
+    """(C(k, 2),) int32: pair p's planes i | j << 8, in the order of
+    `surface.voronoi_device._pair_tables(k)` (i < j, by i, then j)."""
+    i, j = np.triu_indices(k, 1)
+    return (i | j << 8).astype(np.int32)
+
+
+_PAIRS: dict = {}
+
+
+def _pairs_on(k: int, dev):
+    t = _PAIRS.get((k, dev))
+    if t is None:
+        t = _PAIRS[(k, dev)] = torch.as_tensor(pair_table(k), device=dev)
+    return t
 
 
 def _check(kernel: bool, rel_parked, valid, is_boundary, k, dedup_mode):
@@ -75,16 +113,6 @@ def _check(kernel: bool, rel_parked, valid, is_boundary, k, dedup_mode):
         raise ValueError(f"dedup_mode must be one of {DEDUP_MODES}, got {dedup_mode!r}")
 
 
-def _s_scale(rel_parked, valid):
-    """Each row's median s = |r|^2 / 2 over its valid slots (1 where none):
-    the clip builder's scale, in its arithmetic."""
-    from waterorderlib_tpu_torch.surface import voronoi_device as vd
-
-    s_all = 0.5 * vd._dot3(rel_parked, rel_parked)
-    s_med = vd._nanmedian(torch.where(valid, s_all, torch.full_like(s_all, float("nan"))))
-    return torch.where(torch.isfinite(s_med), s_med, torch.ones_like(s_med)).contiguous()
-
-
 def voronoi_cells_fused(rel_parked, valid, is_boundary, k: int, eps: float,
                         dedup_mode: str = "auto") -> dict:
     """Cell moments of R rows: rel_parked (R, ks, 3) the candidates relative
@@ -99,7 +127,6 @@ def voronoi_cells_fused(rel_parked, valid, is_boundary, k: int, eps: float,
         return voronoi_cells_fused_plain(rel_parked, valid, is_boundary, k, eps, dedup_mode)
     R, ks, _ = rel_parked.shape
     dev = rel_parked.device
-    s_scale = _s_scale(rel_parked, valid)
     out = {key: torch.empty(R, dtype=torch.float32, device=dev)
            for key in ("vol", "area", "r_cell", "closure_err")}
     out.update({key: torch.empty(R, dtype=torch.bool, device=dev)
@@ -107,18 +134,19 @@ def voronoi_cells_fused(rel_parked, valid, is_boundary, k: int, eps: float,
     out["face_area"] = torch.empty((R, k), dtype=torch.float32, device=dev)
     out["face_nverts"] = torch.empty((R, k), dtype=torch.int32, device=dev)
     closure_tol = float(max(np.float32(20.0 * eps), np.float32(1e-6)))
-    boundary = is_boundary.contiguous()
+    boundary, valid = is_boundary.contiguous(), valid.contiguous()
     fn = build.load("voronoi_cells").voronoi_cells_launch
     if fn.argtypes is None:
-        fn.argtypes = [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_float, _c_float, _c_int,
-                       *([_c_ptr] * 9), _c_ptr]
+        fn.argtypes = [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_float,
+                       _c_float, _c_int, *([_c_ptr] * 9), _c_ptr]
         fn.restype = _c_int
     outs = [out[key] for key in ("vol", "area", "r_cell", "closure_err", "ok_shape", "extra_cut",
                                  "neg_face", "face_area", "face_nverts")]
     with torch.cuda.device(dev):
-        err = fn(rel_parked.data_ptr(), s_scale.data_ptr(), boundary.data_ptr(), R, ks, k,
-                 float(eps), closure_tol, int(dedup_mode == "always"),
-                 *(t.data_ptr() for t in outs), torch.cuda.current_stream().cuda_stream)
+        err = fn(rel_parked.data_ptr(), valid.data_ptr(), boundary.data_ptr(),
+                 _pairs_on(k, dev).data_ptr(), R, ks, k, rows_per_block(k, ks), float(eps),
+                 closure_tol, int(dedup_mode == "always"), *(t.data_ptr() for t in outs),
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"voronoi_cells_launch failed: CUDA error {err}")
     voronoi_cells_fused.launches += 1

@@ -15,7 +15,11 @@ block b of frame f scans the `win` z-sorted candidates exts[f, starts[f, b]
 :][:win]; the payload is the position in the sorted candidate array.
 `voronoi_cellgrid_topk`: each row scans the 27 cells around its cell cid
 (dz, then dy, then dx in (-1, 0, 1)), each cell's `cap` table slots in
-order; the payload is the table's candidate id.
+order; the payload is the table's candidate id. Its kernel has two
+mappings, chosen per launch by `_cellgrid_grouped`: grouped, where rows
+share cells (`_cellgrid_order` sorts the rows by cell; a block stages one
+neighborhood for each run of one cell among its GROUP_ROWS rows), and
+direct (one warp a row, for the sparse escalation tiers).
 
 Each wrapper launches its kernel (csrc/voronoi_topk.cu) on CUDA tensors,
 which must be float32, and calls its plain version on CPU tensors (float32
@@ -35,6 +39,17 @@ from waterorderlib_tpu_torch.ops.cuda import build, window
 
 MAX_K = 256  # kMaxK in csrc/voronoi_topk.cu: the row's list in shared memory
 PLAIN_BUDGET = 1 << 25  # (row, lane) distances per step of the plain versions
+GROUP_ROWS = 32  # sorted rows a block of the grouped cell-grid mapping takes
+GROUP_MIN = 16  # rows to an inner cell from which the grouped mapping is taken
+SMEM_MAX = build.SMEM_MAX
+_WARPS, _BUF = 8, 64  # kWarps, kBuf in csrc/voronoi_topk.cu
+# the order in which the cell-grid kernel reads the 27 cells: the row's own
+# cell, the 6 that share a face, the 12 that share an edge, the 8 corners
+# (each in lane order). The nearest candidates come first, so the k-th
+# distance falls early and fewer lanes enter the selection; the result does
+# not depend on it (ties go by lane).
+SCAN_ORDER = tuple(sorted(range(27), key=lambda o: (
+    abs(o // 9 - 1) + abs(o // 3 % 3 - 1) + abs(o % 3 - 1), o)))
 
 _c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
 
@@ -117,6 +132,42 @@ def _launch(entry, argtypes, args):
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+
+
+def grouped_smem(cap: int) -> int:
+    """Shared memory of one block of the grouped cell-grid mapping: the
+    warps' key buffers (8 bytes a key), the 27 cells' staged slots (x, y,
+    z, tag and the candidate id: 20 bytes a slot) and the cell offsets."""
+    return _WARPS * _BUF * 8 + 27 * cap * 20 + 28 * 4
+
+
+def _cellgrid_grouped(n_rows: int, n_side: int, cap: int) -> bool:
+    """The grouped mapping where a frame's rows are at least GROUP_MIN to
+    an inner cell (tier 1: ~24 at 12,294 points) and the staged cells fit a
+    block (cap <= 422); else the direct one (the escalation tiers' subsets:
+    ~8 rows to an inner cell at k 96, about one beyond, where staging a
+    neighborhood for a few rows costs more than it saves)."""
+    return n_rows >= GROUP_MIN * (n_side - 2) ** 3 and grouped_smem(cap) <= SMEM_MAX
+
+
+def _cellgrid_order(cid):
+    """The grouped mapping's row order: each frame's rows sorted stably by
+    their cell, as global row ids f * R + r (F * R,) int32. A block takes
+    GROUP_ROWS consecutive ones and stages one neighborhood for each run of
+    one cell among them."""
+    F, R = cid.shape
+    order = torch.sort(cid, dim=-1, stable=True)[1]
+    return (order + torch.arange(F, device=cid.device)[:, None] * R).to(torch.int32).reshape(-1)
+
+
+_SCAN_T: dict = {}
+
+
+def _scan_order(dev):
+    t = _SCAN_T.get(dev)
+    if t is None:
+        t = _SCAN_T[dev] = torch.tensor(SCAN_ORDER, dtype=torch.int32, device=dev)
+    return t
 
 
 def _sqrt(x):
@@ -210,12 +261,15 @@ def voronoi_cellgrid_topk(centers, cid, tbl_pos, tbl_idx, n_side, k):
     if window.runs_plain(centers, "voronoi_cellgrid_topk"):
         return voronoi_cellgrid_topk_plain(centers, cid, tbl_pos, tbl_idx, n_side, k)
     F, R, _ = centers.shape
+    cap = tbl_idx.shape[-1]
     dist = torch.empty((F, R, k), dtype=torch.float32, device=centers.device)
     idx = torch.empty((F, R, k), dtype=torch.int32, device=centers.device)
+    order = _cellgrid_order(cid) if _cellgrid_grouped(R, n_side, cap) else None
     _launch("voronoi_cellgrid_topk_launch",
             [_c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr,
-             _c_ptr],
-            (centers, cid, R, tbl_pos, tbl_idx, n_side, tbl_idx.shape[-1], k, F, dist, idx))
+             _c_ptr, _c_int, _c_ptr, _c_ptr],
+            (centers, cid, R, tbl_pos, tbl_idx, n_side, cap, k, F, _scan_order(centers.device),
+             order, GROUP_ROWS, dist, idx))
     voronoi_cellgrid_topk.launches += 1
     return dist, idx
 
