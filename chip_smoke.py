@@ -13,13 +13,18 @@ Phases (each raises on failure; nothing is caught):
    that must take the brute tier; the 3-body angles and psi6 in the slab
    and brute forms; both LSI kernels in the slab and brute forms on the
    lattice with a third of its atoms stored shifted by +/-L (so raw and
-   imaged distances differ), and a 16-member cluster in one shell of a
-   16,384-water box, where `lsi_certified` must leave the split tier for
-   the K=24 kernel (without the cluster no row of that box is incomplete);
-   both H-bond kernels on 4096 waters x 8 frames of `make_water_box`
-   (water-water, the JAX package's asymmetric 37-donor sets, and a third of
-   the stored atoms shifted by +/-L), the slab kernel also against the
-   dense one and, at w = 512, failing `covered`; counts exactly equal;
+   imaged distances differ), the K=24 kernel also on a 16^3 lattice of
+   spacing 3 A (distances tie exactly) in both forms and on windows of 20
+   columns, two of them outside the columns (NaN rows), and a 16-member
+   cluster in one shell of a 16,384-water box, where `lsi_certified` must
+   leave the split tier for the K=24 kernel (without the cluster no row of
+   that box is incomplete); both H-bond kernels on 4096 waters x 8 frames
+   of `make_water_box` (water-water, the JAX package's asymmetric 37-donor
+   sets, a third of the stored atoms shifted by +/-L, and pairs planted at
+   exactly the cut and at exactly half a box edge in x, y and z, also in a
+   6 x 7 x 6.5 A box and its NPT copy where half an edge lies within the
+   cut), the slab kernel also against the dense one and, at w = 512,
+   failing `covered`; counts exactly equal;
 3. the q_tet slice: `tet_order_calc` on a 4096-water, 1024-frame box with
    one sub-population, device="cuda"; it must take the slab tier, launch
    the kernel and never call the plain version; its q on 16 frames must
@@ -47,7 +52,10 @@ Phases (each raises on failure; nothing is caught):
 5. each kernel's time per frame at its slice's own launch (F=1024; the
    split kernel at 16,384 waters, F=64; `hbond_slab` at 16,384 x 64 and,
    for the crossover, at 4096 x 1024) and its plain version's on a few
-   frames of it;
+   frames of it, with its share of the bound (the H-bond and K=24 LSI
+   kernels' device time alone, from torch.profiler, comes after the last
+   phase from `python3 chip_smoke.py --alone`, a process of its own, as
+   `[alone]` lines);
 6. 131,072 and 1,048,576 atoms, 1 frame: each certified dispatch must take
    the slab tier (LSI at high_cut 3.7 A: "slab-split" at 131,072 atoms of
    `_split_traj`'s lattice, the K=24 "slab" on `_lattice_traj`'s, whose
@@ -712,6 +720,75 @@ def _hb_mismatch(label, pos, boxes, top, got, want):
                          f"angle - cut = {ang - HB_ANG:.3e} degrees")
     print("\n".join(lines), flush=True)
     raise AssertionError(lines[0])
+
+
+def _hb_planted(w_sets, boxes):
+    """H-bond sets with pairs planted at the edges of csrc/hbond.cu's
+    magnitude minimum image: (label, (acc, don, donh), boxes) for the
+    water-water sets of `w_sets` with 6 acceptors and 6 donors appended --
+    3 pairs at exactly the cut (a donor 3.5 A from its acceptor along x, y
+    or z on exact float32 coordinates: dsq == dist^2, the hydrogen on the
+    line between them, so each bonds) and 3 at exactly half a box edge along
+    x, y or z -- and a small box of edges 6, 7 and 6.5 A (frame 0) and an
+    NPT copy scaled by 1.0625 (frame 1), where half an edge lies within the
+    cut: 4 acceptors, each with donors at exactly half an edge along x, y
+    and z and one at the cut."""
+    import torch
+
+    acc, don, donh = w_sets
+    f, dev = acc.shape[0], acc.device
+    a_pl = torch.zeros((f, 6, 3), device=dev)
+    d_pl = torch.zeros((f, 6, 3), device=dev)
+    for ax in range(3):
+        a_pl[:, ax] = 2.0 + 4.0 * ax
+        d_pl[:, ax] = a_pl[:, ax]
+        d_pl[:, ax, ax] += 3.5
+        a_pl[:, 3 + ax] = 0.5
+        a_pl[:, 3 + ax, ax] = 0.0
+        d_pl[:, 3 + ax] = a_pl[:, 3 + ax]
+        d_pl[:, 3 + ax, ax] = boxes[:, ax] * 0.5
+    h_pl = d_pl.clone()
+    for ax in range(3):
+        h_pl[:, ax, ax] -= 0.9572
+        h_pl[:, 3 + ax, ax] -= 0.9572
+    big = (torch.cat([acc, a_pl], dim=1), torch.cat([don, d_pl], dim=1),
+           torch.cat([donh, h_pl], dim=1))
+    # the small box: each acceptor's donors at half an edge along x, y and z
+    # (hydrogens 0.9572 A back along the axis) and at (1, 1.5, 3) A, where
+    # dsq = 12.25 exactly (hydrogen at 0.7 of the way to the acceptor)
+    sb = torch.tensor([[6.0, 7.0, 6.5], [6.375, 7.4375, 6.90625]], device=dev)
+    a_s = torch.tensor([[0.25, 0.5, 0.75], [1.0, 1.0, 1.0], [0.5, 3.0, 2.0], [2.0, 0.25, 3.0]],
+                       device=dev).expand(2, 4, 3)
+    cut_d = torch.tensor([1.0, 1.5, 3.0], device=dev)
+    d_s, h_s = [], []
+    for i in range(4):
+        for ax in range(4):
+            d, h = a_s[:, i].clone(), a_s[:, i].clone()
+            if ax < 3:
+                d[:, ax] = d[:, ax] + sb[:, ax] * 0.5
+                h[:, ax] = d[:, ax] - 0.9572
+            else:
+                d, h = d + cut_d, h + 0.3 * cut_d
+            d_s.append(torch.remainder(d, sb))
+            h_s.append(torch.remainder(h, sb))
+    small = (a_s.contiguous(), torch.stack(d_s, dim=1), torch.stack(h_s, dim=1))
+    return ((f"{acc.shape[1]} waters + 6 planted pairs (cut, half edge)", big, boxes),
+            ("6 x 7 x 6.5 A box and its NPT copy, half edges within the cut", small, sb))
+
+
+def _lsi_lattice(n_side, dev):
+    """(pos (1, n, 3), boxes (1, 3)) of a cubic lattice of spacing 3 A in a
+    box of n_side spacings: exact float32 coordinates, so distances tie
+    exactly everywhere (a row's 24th candidate falls inside a 24-member
+    shell); every third site stored shifted by +L in x (other raw distances,
+    the same imaged ones)."""
+    import numpy as np
+    import torch
+
+    g = np.stack(np.meshgrid(*(np.arange(n_side),) * 3, indexing="ij"), -1).reshape(-1, 3) * 3.0
+    g[::3, 0] += 3.0 * n_side
+    return (torch.tensor(g[None], dtype=torch.float32, device=dev),
+            torch.full((1, 3), 3.0 * n_side, dtype=torch.float32, device=dev))
 
 
 def _stages(label, driver_fn):
@@ -2308,6 +2385,51 @@ def _rows_vs_host(top, traj):
     return quirk / 2.0, quirk
 
 
+def _alone() -> int:
+    """`python3 chip_smoke.py --alone`: the device time alone (torch.profiler)
+    of `hbond_dense`, `hbond_slab` and `lsi_window` at their slices'
+    launches, as phase 5 times them, in a process of its own. Late in the
+    main run torch.profiler sessions lose kernel events (readings of 0, or
+    of one launch in three, on the H100), so the main run keeps only the
+    Voronoi kernels' readings, which come first there."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from waterorderlib_tpu_torch.io.synthetic import make_water_box
+    from waterorderlib_tpu_torch.ops.cuda import hbond, lsi
+
+    card, dev = _card(), torch.device("cuda")
+    top, traj = make_water_box(N_WATERS, n_frames=N_FRAMES_SLICE, seed=0)
+    wat_pos = torch.as_tensor(traj.positions[:, top.get_wat_inds()[0]], dtype=torch.float32,
+                              device=dev)
+    boxes = torch.as_tensor(traj.boxes, dtype=torch.float32, device=dev)
+    _, traj_h = make_water_box(N_WATERS, n_frames=N_FRAMES_SLICE, seed=0,
+                               solute_elements=HB_SOLUTE)
+    _, traj_hs = make_water_box(N_HB_SLAB, n_frames=N_FRAMES_HB_SLAB, seed=0)
+    wh = _hb_water_sets(torch.as_tensor(traj_h.positions, device=dev), N_WATERS)
+    bh = torch.as_tensor(traj_h.boxes, device=dev)
+    wh16 = _hb_water_sets(torch.as_tensor(traj_hs.positions, device=dev), N_HB_SLAB)
+    bh16 = torch.as_tensor(traj_hs.boxes, device=dev)
+    prep16, slab16 = _hb_slab_args(*wh16, bh16)
+    prep4, slab4 = _hb_slab_args(*wh, bh)
+    for label, fn, args, kname in (
+            ("lsi_window at its slice's launch", lsi.lsi_window,
+             _lsi_slab_args(wat_pos, boxes)[3], "lsi_window_kernel"),
+            (f"hbond_dense at {N_WATERS} waters", hbond.hbond_dense, _hb_dense_args(*wh, bh),
+             "hbond_kernel"),
+            (f"hbond_slab at {N_HB_SLAB} waters, w={prep16.w}", hbond.hbond_slab, slab16,
+             "hbond_kernel"),
+            (f"hbond_slab at {N_WATERS} waters, w={prep4.w}", hbond.hbond_slab, slab4,
+             "hbond_kernel")):
+        ms = _device_ms(fn, args, kname) / args[0].shape[0]
+        print(f"[alone] {label}: its kernel alone on the card (torch.profiler, a process of its "
+              f"own) {ms:.5f} ms/frame; {card}", flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2429,6 +2551,29 @@ def main() -> int:
     print(f"[kernel] +/-L shifts: K=24 and split LSI differ on {n_differ} of "
           f"{N_FRAMES_CMP * N_WATERS} rows (the next-shell pick among 24 against all)", flush=True)
 
+    # the K=24 kernel on exact ties: a 16^3 lattice of spacing 3 A (every
+    # distance exact in float32), brute and slab forms; and windows of 20
+    # columns, narrower than a warp, two of them outside the columns
+    lat, lat_b = _lsi_lattice(16, dev)
+    errs["lsi_window"].append(_cmp("16^3 lattice, spacing 3 A (exact ties), brute form", l_k, l_p,
+                                   _lsi_brute_args(lat, lat_b, False), lsi_tols))
+    errs["lsi_window"].append(_cmp("16^3 lattice (exact ties), slab form", l_k, l_p,
+                                   _lsi_slab_args(lat, lat_b)[3], lsi_tols))
+    narrow = list(_lsi_brute_args(sh[:2], boxes[:2], False))
+    narrow[4] = 20
+    narrow[2] = (torch.arange(-(-N_WATERS // 128), dtype=torch.int32, device=dev) * 97
+                 % (N_WATERS - 20)).to(torch.int32)
+    errs["lsi_window"].append(_cmp("windows of 20 columns", l_k, l_p, tuple(narrow), lsi_tols))
+    narrow[2][1], narrow[2][5] = -1, N_WATERS - 19
+    got, want = l_k(*narrow), l_p(*narrow)
+    same = all(torch.equal(torch.nan_to_num(g, 7.0), torch.nan_to_num(x, 7.0))
+               for g, x in zip(got, want))
+    nan_rows = int(torch.isnan(got[0]).sum())
+    print(f"[kernel] lsi_window, windows of 20 columns, tiles 1 and 5 outside the columns: "
+          f"equal to the plain version (NaN rows {nan_rows}): {same}", flush=True)
+    _check(same and nan_rows == 2 * 2 * 128, "lsi_window: windows outside the columns differ")
+    del lat, lat_b, narrow, got, want
+
     # count certificate: a 16-member cluster in one 3.7 A shell of a box on
     # the split tier; the split kernel flags it and the K=24 kernel serves.
     # Without the cluster no row of the box is incomplete
@@ -2506,6 +2651,25 @@ def main() -> int:
         got = hbond.unsort_two_set(prep, *hs_k(*args))
         _check(all(torch.equal(g, d) for g, d in zip(got, dense_counts[label])),
                f"hbond_slab ({label}) differs from hbond_dense")
+    for label, sets, pb in _hb_planted(w_sets, hb_boxes):
+        args = _hb_dense_args(*sets, pb)
+        errs["hbond_dense"].append(_cmp(f"dense, {label}", hd_k, hd_p, args, (0, 0)))
+        nd = sets[1].shape[1]
+        if nd > 64:
+            prep, sargs = _hb_slab_args(*sets, pb)
+        else:  # the small box: every donor in one window, all of them copied on each side
+            prep = hbond.slab_prep_two_set(*sets, pb, HB_DIST, nd, nd)
+            sargs = (prep.acc, prep.don, prep.donh, prep.vhat, prep.starts, pb, prep.w,
+                     HB_DIST * HB_DIST, hbond.cos_cut(HB_ANG))
+        errs["hbond_slab"].append(_cmp(f"slab (w={prep.w}), {label}", hs_k, hs_p, sargs, (0, 0)))
+        acc_c = hd_k(*args)[0]
+        if nd > 64:
+            planted = acc_c[:, N_WATERS:]
+            print(f"[kernel] planted pairs: acceptor counts at the cut {planted[:, :3].tolist()[0]}, "
+                  f"at half an edge {planted[:, 3:].tolist()[0]} (frame 0)", flush=True)
+            _check(bool((planted[:, :3] >= 1).all()), "a pair at exactly the cut did not bond")
+        else:
+            print(f"[kernel] small box: acceptor counts {acc_c.tolist()}", flush=True)
     small, _ = _hb_slab_args(*w_sets, hb_boxes, window_w=512)
     print(f"[kernel] hbond_slab equals hbond_dense on every acceptor and donor; at w=512 covered="
           f"{small.covered.tolist()}", flush=True)
@@ -2744,7 +2908,8 @@ def main() -> int:
         print(f"[time] {name} slab form at its slice's launch ({args[0].shape[2]} rows, "
               f"{width}): kernel {ms:.5f} ms/frame (F={n_frames}), plain "
               f"{plain_ms:.5f} ms/frame (F={nf}), bound {bound / n_frames:.5f} "
-              f"ms/frame ({bound_by}); {card}", flush=True)
+              f"ms/frame ({bound_by}), {bound / n_frames / ms:.1%} of its bound; {card}",
+              flush=True)
 
     # the H-bond kernels at their slices' launches: hbond_dense on the
     # water-water sets of hb_calc's 4096 waters x 1024 frames, hbond_slab on
@@ -2773,7 +2938,8 @@ def main() -> int:
             times[name] = (ms, plain_ms, bound / n_frames, bound_by)
         print(f"[time] {name} at {label} (F={n_frames}, {within / n_frames:.0f} pairs within "
               f"{HB_DIST} A a frame): kernel {ms:.5f} ms/frame, plain {plain_ms:.5f} ms/frame "
-              f"(F={nf}), bound {bound / n_frames:.5f} ms/frame ({bound_by}); {card}", flush=True)
+              f"(F={nf}), bound {bound / n_frames:.5f} ms/frame ({bound_by}), "
+              f"{bound / n_frames / ms:.1%} of its bound; {card}", flush=True)
     del wh, wh16, prep4, slab4, prep16, slab16, top_hs, traj_hs
     del wat_pos, end_pos, split_pos, split_boxes
 
@@ -2926,6 +3092,11 @@ def main() -> int:
     _voronoi_cells_phases(card, kernels, errs, launches, times)
     _voronoi_contacts_phases(card, kernels, errs, launches)
 
+    # the H-bond and K=24 LSI kernels' device time alone, in a process of
+    # its own (`_alone`)
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--alone"], check=True,
+                   timeout=900)
+
     # no jax, and nothing of the JAX package
     _check("jax" not in sys.modules, "jax was imported")
     shared = sorted(m for m in sys.modules
@@ -2955,4 +3126,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_alone() if sys.argv[1:] == ["--alone"] else main())

@@ -3,8 +3,9 @@
 Each kernel source under `csrc/` exposes plain C entry points. At first use
 it is compiled by nvcc into a shared library under `build/torch_kernels/`
 at the repository root and loaded with ctypes; `build_all` compiles several
-sources at once. The file name carries a hash
-of the source and the flags, so an edited source is rebuilt and a stale
+sources at once. The file name carries a hash of the source, of every
+`csrc/` header it includes (`#include "name.cuh"`, e.g. warp_select.cuh)
+and of the flags, so an edited source or header is rebuilt and a stale
 library is never loaded. A failed build raises with nvcc's stderr. Nothing is
 downloaded and no library kernel is linked.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -52,10 +54,23 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _sources(name: str) -> list[Path]:
+    """csrc/<name>.cu and the csrc/ headers it includes, directly or through
+    another header, in the order first met."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M):
+            if CSRC / inc not in found:
+                found.append(CSRC / inc)
+    return found
+
+
 def _library(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.read_bytes())
+    h.update(repr(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names) -> dict[str, Path]:

@@ -29,45 +29,93 @@
 //
 // The contract is nbr_window.cu's (ops/cuda/window.py): rows and columns
 // (F, 3, n) with unit stride along n, one window start per row tile of
-// `row_tile` rows, blocks of kRows rows, the window streamed through shared
-// memory in tiles of kCols columns, NaN for a window outside the columns.
+// `row_tile` rows, blocks of at most 128 rows inside one tile, the window
+// streamed through shared memory in tiles of kCols columns, NaN for a window
+// outside the columns.
 // Beside the wrapped coordinates both kernels take the raw rows and columns
 // in the same layout (slab.raw_ext_t: pad copies keep the stored
 // coordinates). The split kernel takes a second window per tile
 // (starts_wide, w_wide); the contract's window is its narrow one.
 //
-// The K = 24 top list keeps (dsq, column) in registers, columns visited in
-// ascending order and a candidate moved ahead only when strictly smaller
-// (extract_k_min's lowest-column order); the epilogue recomputes each
-// slot's raw squared distance from its column. The split kernel's top-12
-// keeps distances only (no payload), and its pass 2 keeps one (raw, imaged)
-// pair. The epilogue follows lsi_epilogue operation by operation: roots by
-// IEEE sqrtf, gaps summed from the final gap in slot order, mean by IEEE
-// division, then the variance in the same order. Squared lengths are the
-// explicit fmaf chain `dot3` (XLA's contraction of the JAX kernels'
-// a*a + b*b + c*c); built with --fmad=false and without fast math, so the
-// plain versions (ops/cuda/lsi.py) agree bit for bit.
+// The K = 24 kernel keeps a row's 24 nearest candidates by key, (dsq's bits
+// << 32) | window column (dsq > low^2 >= 0, so bit order is value order),
+// ascending: equal distances keep the lowest column first, extract_k_min's
+// order; the epilogue recomputes each slot's raw squared distance from its
+// column. The split kernel's top-12 keeps distances only (no payload), and
+// its pass 2 keeps one (raw, imaged) pair. The epilogue follows
+// lsi_epilogue operation by operation: roots by IEEE sqrtf, gaps summed
+// from the final gap in slot order, mean by IEEE division, then the
+// variance in the same order. Squared lengths are the explicit fmaf chain
+// `dot3` (XLA's contraction of the JAX kernels' a*a + b*b + c*c); built with
+// --fmad=false and without fast math, so the plain versions
+// (ops/cuda/lsi.py) agree bit for bit.
 //
-// What bounds it on this card: instruction throughput of the pair scan,
-// ~14 FP32 operations per (row, window column) plus the compares, 8 more
-// per annulus candidate in the split kernel's pass 2 for the raw distance;
-// the window is read once per block from device memory (12 bytes a column,
-// 24 with the raw columns) and then from shared memory. One thread per row;
-// this first version favours being exact over being fast.
+// What bounds them on this card: instruction issue in the pair scan, ~14
+// FP32 operations per (row, window column) plus the compares, 8 more per
+// annulus candidate in the split kernel's pass 2 for the raw distance; the
+// window is read once per block from device memory (12 bytes a column, 24
+// with the raw columns) and then from shared memory.
+//
+// The K = 24 kernel (lsi_window_kernel) is laid out for that bound:
+// - The scan's minimum image is taken by magnitude: for a column - row
+//   difference d, fminf(|d|, L - |d|) squares to the compare-selects'
+//   mi(d)^2 bit for bit (IEEE subtraction is sign-symmetric and rounding
+//   monotone; hbond.cu's header gives the argument). Pad copies lie
+//   within +/-L in z, so d lies in (-2L, 2L); beyond |d| = L both forms are
+//   |d| - L up to sign. 3 instructions an axis in place of ~7.
+// - No serial insertion: the lanes of a warp scan the window, lane j the
+//   columns j, j + 32, ...; a candidate in (low, high + 3.7] whose key is
+//   below the row's current 24th goes into the warp's buffer (a float test
+//   of dsq against the 24th key's dsq first, one vote for the warp, the
+//   64-bit key test only where a lane passes), and every 32
+//   buffered keys are bitonic-sorted across the warp and merged into a
+//   register list of 32 >= 24 keys (WarpSelect<1>, warp_select.cuh, shared
+//   with voronoi_topk.cu). A row has ~57 candidates in a 2176-column window:
+//   2-3 merges a row. The serial form ran a 24-slot shift for each of them
+//   in one thread, and for about half of all columns in some lane of a warp.
+// - kRowsPerWarp = 4 rows a warp, each with its own list: a column is read
+//   from shared memory once for 4 rows (3 bytes a pair of shared-memory
+//   traffic, not 12, which was near the SM's 128 B a clock at the target
+//   issue rate), and the 4 selections' instructions interleave. On the card
+//   (ab_voronoi.py --mappings; H100 80GB HBM3, 700 W) 4 rows a warp beat 2
+//   and 1 (14.07 against 15.45 and 17.00 ms a 1024-frame launch at 4096
+//   rows), and 8 lost (17.01). kWarps24 = 8 warps
+//   a block: 32 rows, inside one 128-row tile of the window contract, so a
+//   block stages one window.
+// - The epilogue runs slot j in lane j: roots, raw distances and gaps in
+//   parallel; the in-shell count and the next-shell pick (the first slot of
+//   least raw distance, the sequential scan's strict `<`) by ballots and a
+//   min over (raw bits, slot) keys; the sums in slot order as a shuffle
+//   chain of n_near - 1 steps, every lane adding the same terms in the same
+//   order.
+// The split kernel is one thread a row (kRows rows a block), as first
+// ported.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "warp_select.cuh"
+
 namespace {
 
-constexpr int kRows = 128;
+constexpr int kRows = 128;  // rows a block of the split kernel
 constexpr int kCols = 512;
 constexpr int kTop = 24;  // slots of the K = 24 kernel
 constexpr int kIn = 12;   // in-shell slots of the split kernel
+constexpr int kRowsPerWarp = 4;  // rows a warp of the K = 24 kernel selects for at once
+constexpr int kWarps24 = 8;      // warps a block of the K = 24 kernel
+constexpr int kRows24 = kWarps24 * kRowsPerWarp;
+static_assert(128 % kRows24 == 0, "a K = 24 block's rows must lie in one 128-row tile");
 
 __device__ __forceinline__ float min_image(float d, float box, float half) {
   d = d > half ? d - box : d;
   return d < -half ? d + box : d;
+}
+
+// a value whose square is min_image(d, box, box / 2)^2, bit for bit (header)
+__device__ __forceinline__ float mi_abs(float d, float box) {
+  const float a = fabsf(d);
+  return fminf(a, box - a);
 }
 
 // a0*b0 + a1*b1 + a2*b2 as fma(a2, b2, fma(a0, b0, a1*b1)), kept explicit
@@ -122,7 +170,47 @@ __device__ __forceinline__ void lsi_epilogue(const float (&dist)[N], const float
   *n_near_out = n_near;
 }
 
-__global__ void __launch_bounds__(kRows)
+// lsi_epilogue over kTop slots held one a lane (lane j: slot j; the lanes
+// from kTop on hold empty slots): the same operations in the same order.
+__device__ __forceinline__ void lsi_epilogue_warp(float dist, float rawsq, bool fin, float high,
+                                                  float* var_out, bool* ok_out,
+                                                  int* n_near_out) {
+  const int lane = threadIdx.x & 31;
+  const float inf = __int_as_float(0x7f800000);
+  const int n_near = __popc(__ballot_sync(kFull, fin && dist <= high));
+  const bool isnext = fin && dist > high;
+  const bool has_next = __ballot_sync(kFull, isnext) != 0u;
+  // the first slot of least raw distance below +inf among the next-shell
+  // ones (rawsq >= +0, so its bits order as its value)
+  u64 b = isnext && rawsq < inf ? ((u64)__float_as_uint(rawsq) << 32) | (unsigned)lane : kSent;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) b = umin64(b, __shfl_xor_sync(kFull, b, d));
+  const float at_best = __shfl_sync(kFull, dist, (int)(b & 31u));
+  const float next_dist = b != kSent ? at_best : 0.f;
+  const int last = n_near > 1 ? n_near - 1 : 0;
+  const float final_gap = next_dist - __shfl_sync(kFull, dist, last);
+  const float denom = (float)(n_near > 1 ? n_near : 1);
+  const float dnext = __shfl_down_sync(kFull, dist, 1);
+  const float gap = dnext - dist;  // slot j's gap in lane j
+  const unsigned inner = __ballot_sync(kFull, dnext < inf);
+  float sum_gaps = final_gap;
+  for (int j = 0; j < n_near - 1; ++j) {
+    const float g = __shfl_sync(kFull, gap, j);
+    if ((inner >> j) & 1u) sum_gaps = sum_gaps + g;
+  }
+  const float mean = sum_gaps / denom;
+  const float t = final_gap - mean;
+  float var = t * t;
+  for (int j = 0; j < n_near - 1; ++j) {
+    const float g = __shfl_sync(kFull, gap, j) - mean;
+    if ((inner >> j) & 1u) var = var + g * g;
+  }
+  *var_out = var / denom;
+  *ok_out = n_near > 1 && has_next;
+  *n_near_out = n_near;
+}
+
+__global__ void __launch_bounds__(32 * kWarps24)
 lsi_window_kernel(const float* __restrict__ rows, long long row_fs, long long row_cs,
                   int n_rows, const float* __restrict__ cols, long long col_fs,
                   long long col_cs, int n_cols, const int* __restrict__ starts, int w,
@@ -132,19 +220,18 @@ lsi_window_kernel(const float* __restrict__ rows, long long row_fs, long long ro
                   float low_sq, float high, float outer_sq, float* __restrict__ lsi_out,
                   bool* __restrict__ valid_out, int* __restrict__ count_out) {
   __shared__ float sx[kCols], sy[kCols], sz[kCols];
+  __shared__ u64 s_buf[kWarps24][kRowsPerWarp][kBuf];
 
   const int f = blockIdx.x / blocks_per_frame;
   const int rb = blockIdx.x - f * blocks_per_frame;
-  const int row = rb * kRows + threadIdx.x;
-  const bool live = row < n_rows;
-  const int start = starts[(rb * kRows) / row_tile];
-  const long long o = (long long)f * n_rows + row;
-
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int start = starts[(rb * kRows24) / row_tile];
   const float bx = boxes[3 * f + 0], by = boxes[3 * f + 1], bz = boxes[3 * f + 2];
-  const float hx = bx * 0.5f, hy = by * 0.5f, hz = bz * 0.5f;
 
   if (start < 0 || start > n_cols - w) {  // a window outside the columns
-    if (live) {
+    const int row = rb * kRows24 + threadIdx.x;
+    if (threadIdx.x < kRows24 && row < n_rows) {
+      const long long o = (long long)f * n_rows + row;
       lsi_out[o] = nanf("");
       valid_out[o] = false;
       count_out[o] = 0;
@@ -152,88 +239,86 @@ lsi_window_kernel(const float* __restrict__ rows, long long row_fs, long long ro
     return;
   }
 
-  float xr = 0.f, yr = 0.f, zr = 0.f;
-  if (live) {
-    const float* r = rows + f * row_fs + row;
-    xr = r[0];
-    yr = r[row_cs];
-    zr = r[2 * row_cs];
-  }
-
-  const float inf = __int_as_float(0x7f800000);
-  float d[kTop];
-  int ci[kTop];
+  // this warp's rows (a row past n_rows offers nothing and writes nothing).
+  // lim: no key of dsq above it can enter the row's list -- outer^2, then
+  // the dsq of the list's 24th key (NaN while the list is short: fminf
+  // keeps outer^2); -1 for a row past n_rows
+  const int row0 = rb * kRows24 + warp * kRowsPerWarp;
+  float xr[kRowsPerWarp], yr[kRowsPerWarp], zr[kRowsPerWarp], lim[kRowsPerWarp];
+  bool live[kRowsPerWarp];
+  WarpSelect<1> ws[kRowsPerWarp];
 #pragma unroll
-  for (int k = 0; k < kTop; ++k) {
-    d[k] = inf;
-    ci[k] = 0;
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    live[r] = row0 + r < n_rows;
+    const float* p = rows + f * row_fs + (live[r] ? row0 + r : 0);
+    xr[r] = p[0];
+    yr[r] = p[row_cs];
+    zr[r] = p[2 * row_cs];
+    lim[r] = live[r] ? outer_sq : -1.f;
+    ws[r].init(s_buf[warp][r], kTop);
   }
 
   const float* cx = cols + f * col_fs + start;
   const float* cy = cx + col_cs;
   const float* cz = cx + 2 * col_cs;
-
   for (int c0 = 0; c0 < w; c0 += kCols) {
     const int nc = min(kCols, w - c0);
     __syncthreads();
-    for (int c = threadIdx.x; c < nc; c += kRows) {
+    for (int c = threadIdx.x; c < nc; c += 32 * kWarps24) {
       sx[c] = cx[c0 + c];
       sy[c] = cy[c0 + c];
       sz[c] = cz[c0 + c];
     }
     __syncthreads();
-    for (int c = 0; c < nc; ++c) {
-      const float dx = min_image(sx[c] - xr, bx, hx);
-      const float dy = min_image(sy[c] - yr, by, hy);
-      const float dz = min_image(sz[c] - zr, bz, hz);
-      const float dsq = dot3(dx, dx, dy, dy, dz, dz);
-      if (!(dsq > low_sq && dsq <= outer_sq)) continue;
-      if (!(dsq < d[kTop - 1])) continue;
-      const int col = c0 + c;
-      // slot k takes slot k-1's entry when the candidate precedes it, or
-      // the candidate when it falls between them (old values on the right)
+    for (int j0 = 0; j0 < nc; j0 += 32) {
+      const int c = j0 + lane;  // < kCols: a lane past nc reads a stale entry, offered never
+      const float x = sx[c], y = sy[c], z = sz[c];
+      const unsigned col = (unsigned)(c0 + c);
 #pragma unroll
-      for (int k = kTop - 1; k > 0; --k) {
-        const bool up = dsq < d[k - 1];
-        const bool here = dsq < d[k];
-        ci[k] = up ? ci[k - 1] : (here ? col : ci[k]);
-        d[k] = up ? d[k - 1] : (here ? dsq : d[k]);
-      }
-      if (dsq < d[0]) {
-        d[0] = dsq;
-        ci[0] = col;
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float ex = mi_abs(x - xr[r], bx);
+        const float ey = mi_abs(y - yr[r], by);
+        const float ez = mi_abs(z - zr[r], bz);
+        const float dsq = dot3(ex, ex, ey, ey, ez, ez);
+        const bool real = c < nc && dsq > low_sq && dsq <= lim[r];
+        if (__ballot_sync(kFull, real) == 0u) continue;  // most batches: no lane can enter
+        ws[r].offer(real, ((u64)__float_as_uint(dsq) << 32) | col);
+        lim[r] = fminf(outer_sq, __uint_as_float((unsigned)(ws[r].thr >> 32)));
       }
     }
   }
-  if (!live) return;
 
-  // roots of the sorted slots and each slot's raw squared distance,
-  // recomputed from its column
-  const float* rr = raw_rows + f * rr_fs + row;
-  const float rxr = rr[0], ryr = rr[rr_cs], rzr = rr[2 * rr_cs];
+  const float inf = __int_as_float(0x7f800000);
   const float* rcx = raw_cols + f * rc_fs + start;
   const float* rcy = rcx + rc_cs;
   const float* rcz = rcx + 2 * rc_cs;
-  float dist[kTop], rawsq[kTop];
-  bool fin[kTop];
 #pragma unroll
-  for (int k = 0; k < kTop; ++k) {
-    fin[k] = d[k] < inf;
-    dist[k] = sqrtf(d[k]);
-    rawsq[k] = inf;
-    if (fin[k]) {
-      const int j = ci[k];
-      const float ex = rcx[j] - rxr, ey = rcy[j] - ryr, ez = rcz[j] - rzr;
-      rawsq[k] = dot3(ex, ex, ey, ey, ez, ez);
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    ws[r].flush();
+    if (!live[r]) continue;  // the same in every lane
+    // slot `lane`: its root and its raw squared distance, recomputed from
+    // its column
+    const u64 key = ws[r].L[0];
+    const bool fin = lane < kTop && key != kSent;
+    const float dist = sqrtf(fin ? __uint_as_float((unsigned)(key >> 32)) : inf);
+    float rawsq = inf;
+    if (fin) {
+      const float* rr = raw_rows + f * rr_fs + row0 + r;
+      const int j = (int)(unsigned)key;
+      const float ex = rcx[j] - rr[0], ey = rcy[j] - rr[rr_cs], ez = rcz[j] - rr[2 * rr_cs];
+      rawsq = dot3(ex, ex, ey, ey, ez, ez);
+    }
+    float var;
+    bool ok;
+    int n_near;
+    lsi_epilogue_warp(dist, rawsq, fin, high, &var, &ok, &n_near);
+    if (lane == 0) {
+      const long long o = (long long)f * n_rows + row0 + r;
+      lsi_out[o] = ok ? var : 0.0f;
+      valid_out[o] = ok;
+      count_out[o] = ok ? n_near : 0;
     }
   }
-  float var;
-  bool ok;
-  int n_near;
-  lsi_epilogue<kTop>(dist, rawsq, fin, high, &var, &ok, &n_near);
-  lsi_out[o] = ok ? var : 0.0f;
-  valid_out[o] = ok;
-  count_out[o] = ok ? n_near : 0;
 }
 
 __global__ void __launch_bounds__(kRows)
@@ -383,8 +468,9 @@ lsi_split_kernel(const float* __restrict__ rows, long long row_fs, long long row
   incomplete_out[o] = count > kIn;
 }
 
-int grid(int n_rows, int n_frames, int* blocks_per_frame, unsigned* n_blocks) {
-  *blocks_per_frame = (n_rows + kRows - 1) / kRows;
+int grid(int n_rows, int rows_per_block, int n_frames, int* blocks_per_frame,
+         unsigned* n_blocks) {
+  *blocks_per_frame = (n_rows + rows_per_block - 1) / rows_per_block;
   const long long nb = (long long)*blocks_per_frame * n_frames;
   if (nb > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   *n_blocks = (unsigned)nb;
@@ -403,10 +489,10 @@ extern "C" int lsi_window_launch(const float* rows, long long row_fs, long long 
                                  bool* valid, int* count, void* stream) {
   int blocks_per_frame;
   unsigned n_blocks;
-  const int err = grid(n_rows, n_frames, &blocks_per_frame, &n_blocks);
+  const int err = grid(n_rows, kRows24, n_frames, &blocks_per_frame, &n_blocks);
   if (err != 0) return err;
   if (n_blocks == 0) return 0;
-  lsi_window_kernel<<<n_blocks, kRows, 0, (cudaStream_t)stream>>>(
+  lsi_window_kernel<<<n_blocks, 32 * kWarps24, 0, (cudaStream_t)stream>>>(
       rows, row_fs, row_cs, n_rows, cols, col_fs, col_cs, n_cols, starts, w, boxes,
       blocks_per_frame, row_tile, raw_rows, rr_fs, rr_cs, raw_cols, rc_fs, rc_cs, low_sq, high,
       outer_sq, lsi, valid, count);
@@ -424,7 +510,7 @@ extern "C" int lsi_split_launch(const float* rows, long long row_fs, long long r
                                 int* count, bool* incomplete, void* stream) {
   int blocks_per_frame;
   unsigned n_blocks;
-  const int err = grid(n_rows, n_frames, &blocks_per_frame, &n_blocks);
+  const int err = grid(n_rows, kRows, n_frames, &blocks_per_frame, &n_blocks);
   if (err != 0) return err;
   if (n_blocks == 0) return 0;
   lsi_split_kernel<<<n_blocks, kRows, 0, (cudaStream_t)stream>>>(

@@ -55,11 +55,11 @@
 // - No serial insertion: a lane below the row's k-th key goes into a
 //   buffer; every 32 buffered keys are sorted across the warp (a bitonic
 //   sort of one key a lane) and merged into the row's sorted list of 32R >=
-//   k keys, which lives in registers (WarpSelect). A key packs dsq's bits
-//   and the lane, so equal distances keep lane order. Cells are read
-//   nearest first (the wrapper's `scan` order: the row's own cell, its 6
-//   face neighbors, 12 edge, 8 corner), so the k-th key falls early: ~5
-//   merges a row at tier 1.
+//   k keys, which lives in registers (WarpSelect, warp_select.cuh). A key
+//   packs dsq's bits and the lane, so equal distances keep lane order.
+//   Cells are read nearest first (the wrapper's `scan` order: the row's own
+//   cell, its 6 face neighbors, 12 edge, 8 corner), so the k-th key falls
+//   early: ~5 merges a row at tier 1.
 // - Rows grouped by cell (where a frame's rows are at least GROUP_MIN = 16
 //   to a cell, tier 1): the wrapper sorts the rows by cell; a block takes
 //   GROUP_ROWS = 32 sorted rows and stages the 27-cell neighborhood of each
@@ -74,13 +74,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "warp_select.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxK = 256;
 constexpr int kTile = 256;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
@@ -194,108 +195,7 @@ window_topk_kernel(const float* __restrict__ centers, int n_rows, int row_block,
   if (active) emit(ld, lp, cnt, k, dist + row * k, pos + row * k);
 }
 
-// --- the cell-grid form -----------------------------------------------------
-
-typedef unsigned long long u64;
-constexpr u64 kSent = ~0ull;  // an empty entry: above every real key
-constexpr int kBuf = 64;      // a warp's keys waiting for a merge (at most 63)
-
-__device__ __forceinline__ u64 umin64(u64 a, u64 b) { return a < b ? a : b; }
-__device__ __forceinline__ u64 umax64(u64 a, u64 b) { return a < b ? b : a; }
-
-// One row's selection, run by a warp. A key is (dsq bits << 32) | tag, the
-// tag rising with the lane (a positive float's bits order as an unsigned
-// integer), so ascending keys are the stable ascending sort of dsq. L holds
-// the 32 R smallest keys merged so far, ascending, entry i in register i / 32
-// of lane i % 32; thr is its entry k - 1, and a key at or above thr cannot be
-// among the k smallest. Keys below thr wait in the warp's buffer; every 32 of
-// them are sorted (a bitonic sort over the lanes) and merged into L (the
-// lower half of L and the reversed 32 is bitonic; a bitonic merge sorts it).
-template <int R>
-struct WarpSelect {
-  u64 L[R];
-  u64 thr;
-  int cnt;  // keys in buf, the same in every lane
-  u64* buf;
-  int k;
-
-  __device__ __forceinline__ void init(u64* b, int k_) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) L[r] = kSent;
-    thr = kSent;
-    cnt = 0;
-    buf = b;
-    k = k_;
-  }
-
-  // merge 32 keys, one a lane in no order, into L
-  __device__ __forceinline__ void merge(u64 v) {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int size = 2; size <= 32; size <<= 1) {
-#pragma unroll
-      for (int d = size >> 1; d > 0; d >>= 1) {
-        const u64 o = __shfl_xor_sync(kFull, v, d);
-        v = (((lane & d) == 0) == ((lane & size) == 0)) ? umin64(v, o) : umax64(v, o);
-      }
-    }
-    const u64 rv = __shfl_sync(kFull, v, 31 - lane);
-    L[R - 1] = umin64(L[R - 1], rv);
-#pragma unroll
-    for (int dr = R / 2; dr > 0; dr >>= 1) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if ((r & dr) == 0) {
-          const u64 a = L[r], b = L[r + dr];
-          L[r] = umin64(a, b);
-          L[r + dr] = umax64(a, b);
-        }
-      }
-    }
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const u64 o = __shfl_xor_sync(kFull, L[r], d);
-        L[r] = (lane & d) ? umax64(L[r], o) : umin64(L[r], o);
-      }
-    }
-    u64 t = L[0];
-#pragma unroll
-    for (int r = 1; r < R; ++r)
-      if (r == ((k - 1) >> 5)) t = L[r];
-    thr = __shfl_sync(kFull, t, (k - 1) & 31);
-  }
-
-  // each lane's key, if `real`: into the buffer when below thr
-  __device__ __forceinline__ void offer(bool real, u64 key) {
-    const int lane = threadIdx.x & 31;
-    const bool s = real && key < thr;
-    const unsigned m = __ballot_sync(kFull, s);
-    if (m == 0) return;
-    if (s) buf[cnt + __popc(m & ((1u << lane) - 1u))] = key;
-    cnt += __popc(m);
-    if (cnt >= 32) {
-      __syncwarp();
-      const u64 v = buf[lane];
-      const u64 w = buf[32 + lane];
-      __syncwarp();
-      if (lane < cnt - 32) buf[lane] = w;
-      cnt -= 32;
-      merge(v);
-    }
-  }
-
-  __device__ __forceinline__ void flush() {
-    if (cnt == 0) return;
-    const int lane = threadIdx.x & 31;
-    __syncwarp();
-    const u64 v = lane < cnt ? buf[lane] : kSent;
-    __syncwarp();
-    cnt = 0;
-    merge(v);
-  }
-};
+// --- the cell-grid form (its selection: WarpSelect, warp_select.cuh) ---------
 
 // flat offset of neighbor o (dz, dy, dx = o / 9, o / 3 % 3, o % 3, each - 1)
 __device__ __forceinline__ int cell_offset(int o, int n_side) {
