@@ -9,14 +9,27 @@ Phases (each raises on failure; nothing is caught):
    started together), with ptxas's register and spill report;
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (a 4096-water jittered lattice, 8 frames): q_tet in the
-   slab form, the brute form, the straggler patch and a sparse 512-atom box
-   that must take the brute tier; the 3-body angles and psi6 in the slab
+   slab form, the brute form, with a third of the stored atoms shifted by
+   +/-L, on pairs planted at exactly the 4.5 A margin (the lists' filter)
+   and the 10 A shell edge with a coincident pair, on windows of 20
+   columns (two outside the columns) and on a sparse 512-atom box whose
+   every row is scanned again -- each in both forms of qtet_window.cu (as
+   given, and with its frames repeated up to the row form's 65,536 rows) --
+   the straggler patch, and the sparse box, which must take the brute tier;
+   the 3-body angles and psi6 in the slab
    and brute forms; both LSI kernels in the slab and brute forms on the
    lattice with a third of its atoms stored shifted by +/-L (so raw and
-   imaged distances differ), the K=24 kernel also on a 16^3 lattice of
-   spacing 3 A (distances tie exactly) in both forms and on windows of 20
+   imaged distances differ) and on pairs planted at exactly high and high
+   + 3.7 A (float32 offsets whose squares are those bounds exactly), a
+   coincident pair and an annulus tie in raw distance; the split kernel on
+   narrow windows sticking out of its wide ones at either end, windows
+   apart and touching, windows of 20 columns and a wide window outside the
+   columns; both on a 16^3 lattice of
+   spacing 3 A (distances tie exactly) in both forms, the K=24 kernel on
+   windows of 20
    columns, two of them outside the columns (NaN rows), and a 16-member
-   cluster in one shell of a 16,384-water box, where `lsi_certified` must
+   cluster in one shell of a 16,384-water box (the split kernel equal to
+   its plain version on it), where `lsi_certified` must
    leave the split tier for the K=24 kernel (without the cluster no row of
    that box is incomplete); both H-bond kernels on 4096 waters x 8 frames
    of `make_water_box` (water-water, the JAX package's asymmetric 37-donor
@@ -42,7 +55,8 @@ Phases (each raises on failure; nothing is caught):
    driver: `lsi_calc` at its default high_cut 3.7 A on 16,384 waters x 64
    frames whose oxygens sit on `_split_traj`'s lattice (six neighbors
    within 3.7 A on average, at most 9) must take "slab-split" and launch
-   `lsi_split_window`; the H-bond slice: `hb_calc` on 4096 waters and a
+   `lsi_split_window`, then one more call of it under the stage clock;
+   the H-bond slice: `hb_calc` on 4096 waters and a
    solute whose nine acceptor x donor sets are non-empty x 1024 frames (the
    dense tier; its per-water totals on 16 frames equal the arccos form
    `bonds.general_hbond_counts` on the card), `get_bound_wrap` on it (masks
@@ -52,10 +66,10 @@ Phases (each raises on failure; nothing is caught):
 5. each kernel's time per frame at its slice's own launch (F=1024; the
    split kernel at 16,384 waters, F=64; `hbond_slab` at 16,384 x 64 and,
    for the crossover, at 4096 x 1024) and its plain version's on a few
-   frames of it, with its share of the bound (the H-bond and K=24 LSI
-   kernels' device time alone, from torch.profiler, comes after the last
-   phase from `python3 chip_smoke.py --alone`, a process of its own, as
-   `[alone]` lines);
+   frames of it, with its share of the bound (the q, split LSI, H-bond and
+   K=24 LSI kernels' device time alone, from torch.profiler, comes after
+   the last phase from `python3 chip_smoke.py --alone q` and `--alone hb`,
+   each a process of its own, as `[alone]` lines);
 6. 131,072 and 1,048,576 atoms, 1 frame: each certified dispatch must take
    the slab tier (LSI at high_cut 3.7 A: "slab-split" at 131,072 atoms of
    `_split_traj`'s lattice, the K=24 "slab" on `_lattice_traj`'s, whose
@@ -89,10 +103,12 @@ Phases (each raises on failure; nothing is caught):
    `sphere_volumes` on the card equal the port's CPU run;
 9. the earlier q kernels at 4096 waters: `order_param_q_dense` (one
    `qtet_window_hist` launch; q equal to the brute `q_window` form, the
-   fused histogram to its plain version), the dense q over 1024 frames,
-   and the v1 slab q (per-frame z-sort, its per-frame window starts against
-   the plain version on 8 frames; frame-0 sort) over 1024 frames, equal to
-   the brute q wherever ok and covered but at exact 4th/5th-neighbor ties;
+   fused histogram to its plain version, in both forms), the dense q over
+   1024 frames, and the v1 slab q (per-frame z-sort, its per-frame window
+   starts against the plain version on 8 frames, in both forms; frame-0
+   sort) over 1024 frames, equal to the brute q wherever ok and covered but
+   at exact 4th/5th-neighbor ties, whose frames the kernel then takes in
+   the brute form equal to its plain version (the lower column of a tie);
 10. the Voronoi volumes slice (`_voronoi_phases`): both forms of
    `voronoi_topk.cu` equal to their plain versions (dist and payload) at
    12,294 points (the window form with `_suggest_win`'s window, its full
@@ -791,6 +807,114 @@ def _lsi_lattice(n_side, dev):
             torch.full((1, 3), 3.0 * n_side, dtype=torch.float32, device=dev))
 
 
+# rows of a launch (frames x rows) from which qtet_window.cu takes its row
+# form (kRowFormMin); smaller launches take its lane form
+Q_ROW_FORM_MIN = 65_536
+
+
+def _tile_frames(args):
+    """(q_window arguments with their frames repeated up to Q_ROW_FORM_MIN
+    rows, the repeat count): rows, cols, per-frame window starts (where
+    2-D) and boxes carry a leading frame axis."""
+    rows = args[0]
+    k = -(-Q_ROW_FORM_MIN // (rows.shape[0] * rows.shape[2]))
+    if k <= 1:
+        return args, 1
+    return tuple(a.repeat(k, *([1] * (a.dim() - 1))) if i < 4 and a.dim() >= 2 else a
+                 for i, a in enumerate(args)), k
+
+
+def _cmp_q(label, kern, plain, args, errs):
+    """q_window (or q_window_hist) against its plain version in both forms
+    of qtet_window.cu: on `args`, and with their frames repeated up to
+    Q_ROW_FORM_MIN rows (held against the plain outputs repeated; the
+    histogram times the repeat count). NaN rows (windows outside the
+    columns) must match as NaN."""
+    import torch
+
+    want = plain(*args)
+    for form, a_k, k in (("as given", args, 1), ("frames repeated", *_tile_frames(args))):
+        if form != "as given" and k == 1:
+            continue
+        got = kern(*a_k)
+        torch.cuda.synchronize()
+        q_w = want[0].repeat(k, 1)
+        err = float(torch.nan_to_num((got[0] - q_w).abs(), 0.0).max())
+        same_nan = torch.equal(torch.isnan(got[0]), torch.isnan(q_w))
+        exact = torch.equal(got[1], want[1].repeat(k, 1)) and (
+            len(got) < 3 or torch.equal(got[2], want[2] * k))
+        rows = got[0].numel()
+        print(f"[kernel] {kern.__name__} {label} ({form}{f' x{k}' if k > 1 else ''}, {rows} rows: "
+              f"the {'row' if rows >= Q_ROW_FORM_MIN else 'lane'} form): max|d|={err:.3e}, "
+              f"NaN rows equal {same_nan}, ok{' and histogram' if len(got) > 2 else ''} "
+              f"equal {exact}", flush=True)
+        _check(err <= Q_TOL and same_nan and exact, f"{kern.__name__} {label} ({form}) differs "
+               f"from its plain version")
+        errs.append(err)
+
+
+def _q_planted(pos, boxes):
+    """(pos, boxes) of q pairs planted at the kernel's edges: the frames
+    with every atom within 10.5 A of two centers removed, and around each
+    center atoms on exact float32 offsets -- C1 = (20, 20, 20): three at 2.5
+    A, one at exactly 4.5 A (the margin and the lists' filter, both
+    inclusive), one at exactly 10 A (the shell's edge, inclusive) and one on
+    C1 itself (distance 0: low, exclusive); C2 = (20, 20, 38): three at 2.5
+    A, a 4th at 4.5625 A (beyond the filter: C2 is scanned again and its
+    `ok` fails) and one at exactly 10 A."""
+    import torch
+
+    dev = pos.device
+    c1 = torch.tensor([20.0, 20.0, 20.0], device=dev)
+    c2 = torch.tensor([20.0, 20.0, 38.0], device=dev)
+    off1 = [[2.5, 0, 0], [0, 2.5, 0], [0, 0, 2.5], [-4.5, 0, 0], [0, 0, -10.0], [0, 0, 0]]
+    off2 = [[2.5, 0, 0], [0, 2.5, 0], [0, 0, 2.5], [-4.5625, 0, 0], [0, 0, -10.0]]
+    planted = torch.cat([c1[None], c1 + torch.tensor(off1, device=dev), c2[None],
+                         c2 + torch.tensor(off2, device=dev)])
+    keep = torch.ones(pos.shape[1], dtype=torch.bool, device=dev)
+    for c in (c1, c2):
+        d = pos[0] - c
+        d = d - boxes[0] * torch.round(d / boxes[0])
+        keep &= (d * d).sum(-1) > 10.5 * 10.5
+    out = torch.cat([pos[:, keep], planted.expand(pos.shape[0], -1, -1)], dim=1)
+    return out.contiguous(), boxes
+
+
+# float32 offsets whose squared length in the LSI kernels' arithmetic (the
+# fmaf chain) is exactly LSI_HIGH^2 and LSI_OUTER^2 as float32: (x, y, 0)
+LSI_AT_HIGH = (3.699997901916504, 0.00390625)
+LSI_AT_OUTER = (7.399995803833008, 0.0078125)
+
+
+def _lsi_planted(pos, boxes):
+    """(pos, boxes) of LSI pairs planted at the split kernel's edges: the
+    frames with every atom within 9 A of two rows removed, and around them
+    atoms on exact float32 coordinates -- R1 = (0, 20, 20): one neighbor at
+    exactly `high` (in the shell, inclusive), two at 2.5 A, one on R1
+    itself (distance 0: low, exclusive), and two annulus candidates at equal
+    raw distances, 5 A (the first column wins); R2 = (0, 20, 40): two at
+    2.5 A and its only annulus candidate at exactly `high + 3.7` (inclusive),
+    another at 7.5 A (beyond it)."""
+    import torch
+
+    dev = pos.device
+    (hx, hy), (ox, oy) = LSI_AT_HIGH, LSI_AT_OUTER
+    r1 = torch.tensor([0.0, 20.0, 20.0], device=dev)
+    r2 = torch.tensor([0.0, 20.0, 40.0], device=dev)
+    planted = torch.tensor(
+        [[0.0, 20.0, 20.0], [hx, 20.0 + hy, 20.0], [0.0, 22.5, 20.0], [0.0, 20.0, 22.5],
+         [0.0, 20.0, 20.0], [0.0, 15.0, 20.0], [0.0, 20.0, 15.0],
+         [0.0, 20.0, 40.0], [0.0, 22.5, 40.0], [0.0, 20.0, 42.5], [ox, 20.0 + oy, 40.0],
+         [7.5, 20.0, 40.0]], device=dev)
+    keep = torch.ones(pos.shape[1], dtype=torch.bool, device=dev)
+    for c in (r1, r2):
+        d = torch.remainder(pos[0], boxes[0]) - c
+        d = d - boxes[0] * torch.round(d / boxes[0])
+        keep &= (d * d).sum(-1) > 9.0 * 9.0
+    out = torch.cat([pos[:, keep], planted.expand(pos.shape[0], -1, -1)], dim=1)
+    return out.contiguous(), boxes
+
+
 def _stages(label, driver_fn):
     """One more (warm) driver call under the drivers' stage clock: the wall
     time of each of its named steps, the device synchronised between them.
@@ -1409,6 +1533,7 @@ def _qtet_legacy_phases(card, kernels, errs, launches, times):
     _check(torch.equal(hist, h_pl), "the fused histogram differs from its plain version")
     _check(err_h <= Q_TOL, f"dense q: max|dq| {err_h} > {Q_TOL}")
     errs["qtet_window_hist"].append(err_h)
+    _cmp_q("dense q, brute form, 1 frame", hk, hp, args, errs["qtet_window_hist"])
     ms = _ms(hk, args, 20)
     plain_ms = _ms(hp, args, 1)
     bound, bound_by = _bound_ms("qtet_window_hist", args, 5)
@@ -1445,7 +1570,7 @@ def _qtet_legacy_phases(card, kernels, errs, launches, times):
         starts = full[2]
         sub = (full[0][:nf], full[1][:nf], starts[:nf] if starts.dim() == 2 else starts,
                full[3][:nf], *full[4:])
-        errs["qtet_window"].append(_cmp(f"{label}, frames 0-{nf - 1}", q_k, q_p, sub, (Q_TOL, 0)))
+        _cmp_q(f"{label}, frames 0-{nf - 1}", q_k, q_p, sub, errs["qtet_window"])
         ms = _ms(q_k, full, 3) / N_FRAMES_SLICE
         plain_ms = _ms(q_p, sub, 1) / nf
         shared = (*full[:2], starts[0] if starts.dim() == 2 else starts, *full[3:])
@@ -1481,6 +1606,15 @@ def _qtet_legacy_phases(card, kernels, errs, launches, times):
                and bool(ties.all()) and q_k.launches - before == 1,
                f"{name}: not certified, or differs from brute q other than at an exact tie")
         errs["qtet_window"].append(err)
+        # the frames holding those ties: the kernel takes the lower column
+        # of a tie as its plain version does, in both forms
+        tie_frames = sorted(set(f_idx.tolist()))[:8]
+        if tie_frames and name == "order_param_q_sorted":
+            fr = torch.tensor(tie_frames, device=dev)
+            cols_tie = slab.brute_cols(pos[fr], boxes[fr])
+            _cmp_q(f"brute form, the {len(tie_frames)} frames of those ties", q_k, q_p,
+                   (cols_tie, cols_tie, args[2], boxes[fr].contiguous(), n, 128, 0.0, 100.0,
+                    100.0), errs["qtet_window"])
 
 
 def _vor_system(n_waters, n_frames, seed, solute=None):
@@ -2385,10 +2519,12 @@ def _rows_vs_host(top, traj):
     return quirk / 2.0, quirk
 
 
-def _alone() -> int:
-    """`python3 chip_smoke.py --alone`: the device time alone (torch.profiler)
-    of `hbond_dense`, `hbond_slab` and `lsi_window` at their slices'
-    launches, as phase 5 times them, in a process of its own. Late in the
+def _alone(group: str) -> int:
+    """`python3 chip_smoke.py --alone q` or `--alone hb`: the device time alone
+    (torch.profiler) of `q_window` (its row form), `lsi_split_window` and
+    `q_window_hist` (one frame: the lane form), or of `lsi_window`,
+    `hbond_dense` and `hbond_slab`, at their slices' launches, as phases 5
+    and 9 time them, in a process of its own for each group. Late in the
     main run torch.profiler sessions lose kernel events (readings of 0, or
     of one launch in three, on the H100), so the main run keeps only the
     Voronoi kernels' readings, which come first there."""
@@ -2399,23 +2535,39 @@ def _alone() -> int:
         return 1
     sys.path.insert(0, REPO)
     from waterorderlib_tpu_torch.io.synthetic import make_water_box
-    from waterorderlib_tpu_torch.ops.cuda import hbond, lsi
+    from waterorderlib_tpu_torch.ops.cuda import hbond, lsi, qtet2, slab
 
     card, dev = _card(), torch.device("cuda")
     top, traj = make_water_box(N_WATERS, n_frames=N_FRAMES_SLICE, seed=0)
     wat_pos = torch.as_tensor(traj.positions[:, top.get_wat_inds()[0]], dtype=torch.float32,
                               device=dev)
     boxes = torch.as_tensor(traj.boxes, dtype=torch.float32, device=dev)
-    _, traj_h = make_water_box(N_WATERS, n_frames=N_FRAMES_SLICE, seed=0,
-                               solute_elements=HB_SOLUTE)
-    _, traj_hs = make_water_box(N_HB_SLAB, n_frames=N_FRAMES_HB_SLAB, seed=0)
-    wh = _hb_water_sets(torch.as_tensor(traj_h.positions, device=dev), N_WATERS)
-    bh = torch.as_tensor(traj_h.boxes, device=dev)
-    wh16 = _hb_water_sets(torch.as_tensor(traj_hs.positions, device=dev), N_HB_SLAB)
-    bh16 = torch.as_tensor(traj_hs.boxes, device=dev)
-    prep16, slab16 = _hb_slab_args(*wh16, bh16)
-    prep4, slab4 = _hb_slab_args(*wh, bh)
-    for label, fn, args, kname in (
+    if group == "q":
+        sp_np, sb_np = _split_traj(N_SPLIT, N_FRAMES_SPLIT, seed=0)
+        split_args = _lsi_split_args(torch.from_numpy(sp_np).to(dev),
+                                     torch.from_numpy(sb_np).to(dev))[3]
+        lat, lat_b = (torch.from_numpy(x).to(dev) for x in _lattice_traj(N_WATERS, 1, seed=1))
+        cols = slab.brute_cols(lat, lat_b)
+        dense = (cols, cols, torch.zeros(N_WATERS // 128, dtype=torch.int32, device=dev), lat_b,
+                 N_WATERS, 128, 0.0, 100.0, 100.0)
+        readings = (
+            ("q_window at its slice's launch", qtet2.q_window,
+             _slab_args(wat_pos, boxes, 4.5, 256, 10.0, True)[3], "qtet_row_kernel"),
+            (f"lsi_split_window at its slice's launch ({N_SPLIT} waters)", lsi.lsi_split_window,
+             split_args, "lsi_split_kernel"),
+            ("q_window_hist at row 4's launch (1 frame; ms a call)", qtet2.q_window_hist, dense,
+             "qtet_lane_kernel"))
+    else:
+        _, traj_h = make_water_box(N_WATERS, n_frames=N_FRAMES_SLICE, seed=0,
+                                   solute_elements=HB_SOLUTE)
+        _, traj_hs = make_water_box(N_HB_SLAB, n_frames=N_FRAMES_HB_SLAB, seed=0)
+        wh = _hb_water_sets(torch.as_tensor(traj_h.positions, device=dev), N_WATERS)
+        bh = torch.as_tensor(traj_h.boxes, device=dev)
+        wh16 = _hb_water_sets(torch.as_tensor(traj_hs.positions, device=dev), N_HB_SLAB)
+        bh16 = torch.as_tensor(traj_hs.boxes, device=dev)
+        prep16, slab16 = _hb_slab_args(*wh16, bh16)
+        prep4, slab4 = _hb_slab_args(*wh, bh)
+        readings = (
             ("lsi_window at its slice's launch", lsi.lsi_window,
              _lsi_slab_args(wat_pos, boxes)[3], "lsi_window_kernel"),
             (f"hbond_dense at {N_WATERS} waters", hbond.hbond_dense, _hb_dense_args(*wh, bh),
@@ -2423,7 +2575,8 @@ def _alone() -> int:
             (f"hbond_slab at {N_HB_SLAB} waters, w={prep16.w}", hbond.hbond_slab, slab16,
              "hbond_kernel"),
             (f"hbond_slab at {N_WATERS} waters, w={prep4.w}", hbond.hbond_slab, slab4,
-             "hbond_kernel")):
+             "hbond_kernel"))
+    for label, fn, args, kname in readings:
         ms = _device_ms(fn, args, kname) / args[0].shape[0]
         print(f"[alone] {label}: its kernel alone on the card (torch.profiler, a process of its "
               f"own) {ms:.5f} ms/frame; {card}", flush=True)
@@ -2490,13 +2643,42 @@ def main() -> int:
     pos_np, boxes_np = _lattice_traj(N_WATERS, N_FRAMES_CMP, seed=0)
     pos, boxes = torch.from_numpy(pos_np).to(dev), torch.from_numpy(boxes_np).to(dev)
     n, rt = N_WATERS, 256
+    # q in both forms of qtet_window.cu (`_cmp_q`): the slab and brute forms,
+    # the lattice with a third of its atoms stored shifted by +/-L, pairs
+    # planted at exactly the margin (= the lists' filter) and the shell's
+    # edge and a coincident pair, and windows of 20 columns, two of them
+    # outside the columns
     _, _, _, slab_args = _slab_args(pos, boxes, 4.5, rt, 10.0, qtet=True)
     q_k, q_p = qtet2.q_window, qtet2.q_window_plain
-    errs["qtet_window"].append(_cmp(f"slab form (w={slab_args[4]})", q_k, q_p, slab_args,
-                                    (Q_TOL, 0)))
+    _cmp_q(f"slab form (w={slab_args[4]})", q_k, q_p, slab_args, errs["qtet_window"])
     brute_args = _brute_args(pos, boxes, rt, 10.0, qtet=True)
-    errs["qtet_window"].append(_cmp("brute form", q_k, q_p, brute_args, (Q_TOL, 0)))
+    _cmp_q("brute form", q_k, q_p, brute_args, errs["qtet_window"])
     q_brute_plain, _ = q_p(*brute_args)
+    sh_np, _ = _lattice_traj(N_WATERS, N_FRAMES_CMP, seed=0, shifted=True)
+    sh = torch.from_numpy(sh_np).to(dev)
+    _cmp_q("slab form, +/-L shifts", q_k, q_p, _slab_args(sh, boxes, 4.5, rt, 10.0, True)[3],
+           errs["qtet_window"])
+    qp_pos, qp_boxes = _q_planted(pos[:2], boxes[:2])
+    for label, args in (("planted pairs, slab form", _slab_args(qp_pos, qp_boxes, 4.5, rt, 10.0,
+                                                                True)[3]),
+                        ("planted pairs, brute form", _brute_args(qp_pos, qp_boxes, rt, 10.0,
+                                                                  True))):
+        _cmp_q(label, q_k, q_p, args, errs["qtet_window"])
+    got = q_k(*_slab_args(qp_pos, qp_boxes, 4.5, rt, 10.0, True)[3])
+    prep_qp = _slab_args(qp_pos, qp_boxes, 4.5, rt, 10.0, True)[0]
+    at = [int(torch.nonzero(prep_qp.order0 == qp_pos.shape[1] - k)[0, 0]) for k in (13, 6)]
+    print(f"[kernel] planted q rows C1 / C2: ok {[bool(got[1][0, r]) for r in at]} (4th neighbor "
+          f"at exactly the 4.5 A margin / at 4.5625 A, found by the second scan)", flush=True)
+    _check([bool(got[1][0, r]) for r in at] == [True, False], "planted q rows: ok flags wrong")
+    nar = list(_brute_args(pos[:2], boxes[:2], 128, 10.0, True))
+    nar[4] = 20
+    nar[2] = (torch.arange(-(-N_WATERS // 128), dtype=torch.int32, device=dev) * 97
+              % (N_WATERS - 20)).to(torch.int32)
+    _cmp_q("windows of 20 columns", q_k, q_p, tuple(nar), errs["qtet_window"])
+    nar[2][1], nar[2][5] = -1, N_WATERS - 19
+    _cmp_q("windows of 20 columns, tiles 1 and 5 outside the columns", q_k, q_p, tuple(nar),
+           errs["qtet_window"])
+    del nar, qp_pos, prep_qp, got
 
     # straggler patch: a margin just under the 3 largest 4th-neighbor
     # distances leaves 3 uncertified rows, patched by the brute form
@@ -2524,6 +2706,10 @@ def main() -> int:
     _check(qtet2.last_tier == "brute", "sparse box did not take the brute tier")
     _check(err_sparse <= Q_TOL, f"sparse box: max|dq| {err_sparse} > {Q_TOL}")
     errs["qtet_window"].append(err_sparse)
+    # every row of the sparse box has fewer than 4 neighbors within the
+    # lists' filter: each is scanned again, in both forms
+    _cmp_q("sparse 512-atom box, brute form", q_k, q_p, _brute_args(sp_pos, sp_boxes, rt, 50.0,
+                                                                    True), errs["qtet_window"])
 
     a_k, a_p = angles.angles_window, angles.angles_window_plain
     p_k, p_p = psi6.psi6_window, psi6.psi6_window_plain
@@ -2537,8 +2723,6 @@ def main() -> int:
     # differ from the imaged ones
     l_k, l_p = kernels["lsi_window"]
     s_k, s_p = kernels["lsi_split_window"]
-    sh_np, _ = _lattice_traj(N_WATERS, N_FRAMES_CMP, seed=0, shifted=True)
-    sh = torch.from_numpy(sh_np).to(dev)
     lsi_tols = (LSI_TOL, 0, 0, 0)
     for label, k24_args, split_args in (
             ("slab form, +/-L shifts", _lsi_slab_args(sh, boxes)[3], _lsi_split_args(sh, boxes)[3]),
@@ -2546,6 +2730,51 @@ def main() -> int:
              _lsi_brute_args(sh, boxes, True))):
         errs["lsi_window"].append(_cmp(label, l_k, l_p, k24_args, lsi_tols))
         errs["lsi_split_window"].append(_cmp(label, s_k, s_p, split_args, lsi_tols))
+    # the split kernel's union scan on windows the certified dispatch never
+    # plans: a narrow window sticking out of the wide one at either end,
+    # windows apart and touching, windows of 20 columns, and a wide window
+    # outside the columns (NaN rows, incomplete)
+    ba = list(_lsi_brute_args(sh[:2], boxes[:2], True))
+    n_t = -(-N_WATERS // 128)
+    for label, s_n, w_n, s_w, w_w in (
+            ("a narrow window sticking out left of the wide one", 100, 700, 400, 1500),
+            ("a narrow window sticking out right of the wide one", 1500, 900, 300, 1600),
+            ("windows apart", 0, 300, 2000, 1200),
+            ("windows touching", 500, 300, 800, 1000),
+            ("windows of 20 columns", 777, 20, 760, 20)):
+        ba[2] = torch.full((n_t,), s_n, dtype=torch.int32, device=dev)
+        ba[2][::3] = max(0, s_n - 50)
+        ba[8] = torch.full((n_t,), s_w, dtype=torch.int32, device=dev)
+        ba[4], ba[9] = w_n, w_w
+        errs["lsi_split_window"].append(_cmp(label, s_k, s_p, tuple(ba), lsi_tols))
+    ba[8][3] = -1
+    got, want = s_k(*ba), s_p(*ba)
+    same = all(torch.equal(torch.nan_to_num(g, 7.0), torch.nan_to_num(x, 7.0))
+               for g, x in zip(got, want))
+    print(f"[kernel] lsi_split_window, tile 3's wide window outside the columns: equal to the "
+          f"plain version (NaN rows {int(torch.isnan(got[0]).sum())}, incomplete "
+          f"{int(got[3].sum())}): {same}", flush=True)
+    _check(same and int(torch.isnan(got[0]).sum()) == 2 * 128, "lsi_split_window: a window "
+           "outside the columns differs")
+    # pairs planted at exactly high and high + 3.7 (both inclusive), a
+    # coincident pair and an annulus tie in raw distance, in both LSI kernels
+    lp_pos, lp_boxes = _lsi_planted(sh[:2], boxes[:2])
+    for label, k24_args, split_args in (
+            ("planted pairs, slab form", _lsi_slab_args(lp_pos, lp_boxes)[3],
+             _lsi_split_args(lp_pos, lp_boxes)[3]),
+            ("planted pairs, brute form", _lsi_brute_args(lp_pos, lp_boxes, False),
+             _lsi_brute_args(lp_pos, lp_boxes, True))):
+        errs["lsi_window"].append(_cmp(label, l_k, l_p, k24_args, lsi_tols))
+        errs["lsi_split_window"].append(_cmp(label, s_k, s_p, split_args, lsi_tols))
+    got = s_k(*_lsi_brute_args(lp_pos, lp_boxes, True))
+    n_lp = lp_pos.shape[1]
+    r1, r2 = n_lp - 12, n_lp - 5
+    print(f"[kernel] planted LSI rows R1 / R2: valid {bool(got[1][0, r1])} / {bool(got[1][0, r2])}, "
+          f"count {int(got[2][0, r1])} / {int(got[2][0, r2])} (R1: 3 in its shell, one at "
+          f"exactly high; R2: 2, its next-shell pick at exactly high + 3.7)", flush=True)
+    _check(int(got[2][0, r1]) == 3 and int(got[2][0, r2]) == 2 and bool(got[1][0, r2]),
+           "planted LSI rows: counts or valid flags wrong")
+    del ba, got, want, lp_pos
     n_differ = int((l_k(*_lsi_brute_args(sh, boxes, False))[0]
                     != s_k(*_lsi_brute_args(sh, boxes, True))[0]).sum())
     print(f"[kernel] +/-L shifts: K=24 and split LSI differ on {n_differ} of "
@@ -2559,6 +2788,12 @@ def main() -> int:
                                    _lsi_brute_args(lat, lat_b, False), lsi_tols))
     errs["lsi_window"].append(_cmp("16^3 lattice (exact ties), slab form", l_k, l_p,
                                    _lsi_slab_args(lat, lat_b)[3], lsi_tols))
+    # and the split kernel there: equal raw distances among its next-shell
+    # candidates, the first column wins
+    errs["lsi_split_window"].append(_cmp("16^3 lattice (exact ties), brute form", s_k, s_p,
+                                         _lsi_brute_args(lat, lat_b, True), lsi_tols))
+    errs["lsi_split_window"].append(_cmp("16^3 lattice (exact ties), slab form", s_k, s_p,
+                                         _lsi_split_args(lat, lat_b)[3], lsi_tols))
     narrow = list(_lsi_brute_args(sh[:2], boxes[:2], False))
     narrow[4] = 20
     narrow[2] = (torch.arange(-(-N_WATERS // 128), dtype=torch.int32, device=dev) * 97
@@ -2589,6 +2824,9 @@ def main() -> int:
     cl, cl_boxes = torch.from_numpy(cl_np).to(dev), torch.from_numpy(cl_boxes_np).to(dev)
     _check(lsi.split_tier(N_SPLIT, float(cl_boxes[0, 2]), LSI_HIGH), "16,384 waters: no split tier")
     incomplete = int(s_k(*_lsi_split_args(cl, cl_boxes)[3])[3].sum())
+    errs["lsi_split_window"].append(_cmp("16-member cluster (rows with more than 12 in their "
+                                         "shell)", s_k, s_p, _lsi_split_args(cl, cl_boxes)[3],
+                                         lsi_tols))
     before = (l_k.launches, s_k.launches)
     got = lsi.lsi_certified(cl, cl_boxes)
     ran = (l_k.launches - before[0], s_k.launches - before[1])
@@ -2806,6 +3044,9 @@ def main() -> int:
         kernels, "lsi_split_window", lambda: lsi.last_tier, "slab-split",
         ["lsiDistribution_0.txt", "lsiDistribution_1.txt"], 2,
     )
+    _stages(f"lsi_calc, split tier ({N_SPLIT} waters x {N_FRAMES_SPLIT} frames)",
+            lambda d: orderparams.lsi_calc(top_s, traj_s, sub_inds=[[wat_s[::2]]] * N_FRAMES_SPLIT,
+                                           n_pops=1, output_dir=d, device="cuda"))
     split_pos = torch.as_tensor(traj_s.positions[:, wat_s, :], dtype=torch.float32, device=dev)
     split_boxes = torch.as_tensor(traj_s.boxes, dtype=torch.float32, device=dev)
     del top_s, traj_s
@@ -3092,10 +3333,12 @@ def main() -> int:
     _voronoi_cells_phases(card, kernels, errs, launches, times)
     _voronoi_contacts_phases(card, kernels, errs, launches)
 
-    # the H-bond and K=24 LSI kernels' device time alone, in a process of
-    # its own (`_alone`)
-    subprocess.run([sys.executable, os.path.abspath(__file__), "--alone"], check=True,
-                   timeout=900)
+    # the redesigned q and split LSI kernels', and the H-bond and K=24 LSI
+    # kernels', device time alone, each group in a process of its own
+    # (`_alone`)
+    for group in ("q", "hb"):
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--alone", group], check=True,
+                       timeout=900)
 
     # no jax, and nothing of the JAX package
     _check("jax" not in sys.modules, "jax was imported")
@@ -3126,4 +3369,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(_alone() if sys.argv[1:] == ["--alone"] else main())
+    sys.exit(_alone(sys.argv[2]) if sys.argv[1:2] == ["--alone"] else main())

@@ -14,9 +14,22 @@ checkouts can be compared on the same inputs in turns.
   of `hb_calc` on 16,384 waters x 64 frames.
 - `lsi`: `lsi_window` at the launch of `lsi_calc` on 4096 waters x 1024
   frames.
+- `qtet`: `q_window` at the launch of `tet_order_calc` on 4096 waters x
+  1024 frames and at the certified dispatch's slab launches on one frame
+  of 131,072 and 1,048,576 atoms (chip_smoke.py's large lattices), and
+  `q_window_hist` at `order_param_q_dense`'s one-frame launch on 4096
+  waters of chip_smoke.py's seed-1 lattice (the dense q of the earlier q
+  kernels).
+- `lsi_split`: `lsi_split_window` at the launch of `lsi_calc` on 16,384
+  waters x 64 frames whose oxygens sit on chip_smoke.py's `_split_traj`
+  lattice (the split tier), and at `lsi_certified`'s launch on one frame
+  of 131,072 atoms of that lattice.
+For these two the driver's kernel stage (the stage clock of
+`orderparams.stage_times`, 3 warm calls) is recorded too.
 
-Every launch is first compared with its plain version, exactly (the H-bond
-and LSI launches on their first frames). Prints one JSON line: the label,
+Every launch is first compared with its plain version, exactly (the H-bond,
+LSI and q launches on their first frames, the 131k and 1M launches on
+their first and last row tiles). Prints one JSON line: the label,
 the card, and per launch the shape and the kernel's ms (CUDA events, warm,
 the mean of `--iters` launches).
 
@@ -31,8 +44,15 @@ this file once for each, in turns, within one call:
 `--mappings` also times each cell-grid mapping (direct, and grouped at 8 to
 64 rows a block) and each cell-kernel block size, where the checkout has
 them, and each block shape of `hbond.cu` (acceptors a thread, kAcc 2, 4,
-8 and 16) and of `lsi_window.cu` (rows a warp, kRowsPerWarp 1, 2, 4 and 8),
-built from the checkout's sources with that one constant changed;
+8 and 16), of `lsi_window.cu` (the K = 24 kernel's rows a warp,
+kRowsPerWarp 1, 2, 4 and 8; the split kernel's rows a block, kRowsS 32, 64
+and 128) and of `qtet_window.cu` (the row form's rows a block, kRows 32, 64
+and 128; the lane form's rows a warp, kLaneRows 2, 4 and 8; kRowFormMin 0
+and 2^60, which force the row and the lane form), built from the
+checkout's sources with that one constant changed; for a checkout whose q
+kernel still runs the serial 4-slot ladder (the first port's), also that
+kernel with the ladder cut out (its q is wrong and not compared: the time
+of the scan without the ladder);
 `--profile` adds each call's device time by kernel name (torch.profiler),
 the wrapper's own PyTorch work apart from the kernel. Needs one CUDA
 device; fails without one.
@@ -51,7 +71,15 @@ import tempfile
 
 # the block-shape constants `--mappings` sweeps: (source, its line, values)
 SHAPES = {"hbond": ("hbond", "constexpr int kAcc = {};", (2, 4, 8, 16)),
-          "lsi": ("lsi_window", "constexpr int kRowsPerWarp = {};", (1, 2, 4, 8))}
+          "lsi": ("lsi_window", "constexpr int kRowsPerWarp = {};", (1, 2, 4, 8)),
+          "lsi_split": ("lsi_window", "constexpr int kRowsS = {};", (32, 64, 128)),
+          "qtet": ("qtet_window", "constexpr int kRows = {};", (32, 64, 128)),
+          "qtet_lane": ("qtet_window", "constexpr int kLaneRows = {};", (2, 4, 8)),
+          "qtet_form": ("qtet_window", "constexpr long long kRowFormMin = {};",
+                        ("0", "65536", "1LL << 60"))}
+# the serial q kernel's 4-slot ladder, from its first test to its last slot
+LADDER = ("      if (!(dsq < d3)) continue;\n",
+          "        d3 = dsq; x3 = dx; y3 = dy; z3 = dz;\n      }\n")
 
 
 def _ms(fn, args, iters, kw=None):
@@ -236,7 +264,7 @@ def _shapes(build, key, fn, args, want, a):
             for v, lib in _variants(build, source, line, values, tmp).items():
                 build._LOADED[source] = lib
                 got = fn(*args)
-                tag = line.split()[2] + f" {v}"
+                tag = line.split("=")[0].split()[-1] + f" {v}"
                 v_out[f"{tag} equal"] = all(torch.equal(g, w) for g, w in zip(got, want))
                 v_out[f"{tag} ms"] = _ms(fn, args, a.iters)
         finally:
@@ -331,13 +359,146 @@ def _lsi(a, build, record):
     record("lsi_window", **v)
 
 
+def _ladder_cut_ms(build, fn, args, a):
+    """ms of `fn` with the checkout's q kernel built without its serial
+    ladder (the serial kernel; the shell count stays, q is wrong), or None for a
+    kernel without it."""
+    text = (build.CSRC / "qtet_window.cu").read_text()
+    if LADDER[0] not in text:
+        return None
+    i, j = text.index(LADDER[0]), text.index(LADDER[1]) + len(LADDER[1])
+    real = build._LOADED.get("qtet_window")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "qtet_window_cut.cu"), os.path.join(tmp, "libcut.so")
+        with open(src, "w") as f:
+            f.write(text[:i] + "      d3 = fminf(d3, dsq);\n" + text[j:])
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", out, src], check=True,
+                       capture_output=True)
+        build._LOADED["qtet_window"] = ctypes.CDLL(out)
+        try:
+            return _ms(fn, args, a.iters)
+        finally:
+            build._LOADED["qtet_window"] = real
+
+
+def _stage_ms(drive, calls=3):
+    """The driver's "kernel stage" on its own stage clock, ms, in each of
+    `calls` warm calls."""
+    from waterorderlib_tpu_torch.drivers import orderparams
+
+    out = []
+    for _ in range(calls):
+        with orderparams.stage_times() as t:
+            drive()
+        out.append(t["kernel stage"])
+    return out
+
+
+def _qtet(a, build, record):
+    import torch
+    from chip_smoke import _lattice_traj
+    from waterorderlib_tpu_torch.drivers import orderparams
+    from waterorderlib_tpu_torch.io.synthetic import make_water_box
+    from waterorderlib_tpu_torch.ops.cuda import qtet2, qtet_kernel
+
+    top, traj = make_water_box(4096, n_frames=1024, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        seen = _captured(qtet2, "q_window",
+                         lambda: orderparams.tet_order_calc(top, traj, output_dir=d, device="cuda"))
+        record("tet_order_calc kernel stage", ms=_stage_ms(
+            lambda: orderparams.tet_order_calc(top, traj, output_dir=d, device="cuda")))
+    del top, traj
+    pos, boxes = (torch.from_numpy(x).to("cuda") for x in _lattice_traj(4096, 1, seed=1))
+    dense = _captured(qtet2, "q_window_hist",
+                      lambda: qtet_kernel.order_param_q_dense(pos[0], boxes[0]))
+    for name, fn, plain, args, nf in (
+            ("q_window", qtet2.q_window, qtet2.q_window_plain, seen[0], 16),
+            ("q_window_hist", qtet2.q_window_hist, qtet2.q_window_hist_plain, dense[0], 1)):
+        sub = _first(args, nf)
+        got, want = fn(*sub), plain(*sub)
+        v = {"shape": f"{args[0].shape[2]} rows, w {args[4]} x {args[0].shape[0]} frames",
+             "equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+             "ms": _ms(fn, args, a.iters)}
+        if a.mappings:
+            full = fn(*args)
+            for key in ("qtet", "qtet_lane", "qtet_form"):
+                v.update(_shapes(build, key, fn, args, full, a))
+            cut = _ladder_cut_ms(build, fn, args, a)
+            if cut is not None:
+                v["ladder cut out ms"] = cut
+        if a.profile:
+            v["profile"] = _profile(f"{a.label} {name}", fn, args)
+        record(name, **v)
+    for n in (131_072, 1_048_576):
+        pos, boxes = (torch.from_numpy(x).to("cuda") for x in _lattice_traj(n, 1, seed=n % 997))
+        args = _captured(qtet2, "q_window",
+                         lambda: qtet2.order_param_q_certified(pos, boxes))[0]
+        _record_large(a, record, f"q_window {n} atoms", qtet2.q_window, qtet2.q_window_plain,
+                      args, ((0,), (2,)))
+        del pos, boxes, args
+        torch.cuda.empty_cache()
+
+
+def _record_large(a, record, key, fn, plain, args, cut_at):
+    """A one-frame launch at scale: equal to the plain version on its first
+    and last row tiles (chip_smoke.py's `_two_tiles`), then timed."""
+    import torch
+    from chip_smoke import _two_tiles
+
+    rows, rt = args[0], args[5]
+    n = rows.shape[2]
+    sub, _ = _two_tiles(args, -(-n // rt), n, rt, cut_at)
+    got, want = fn(*sub), plain(*sub)
+    record(key, shape=f"{n} rows, w {args[4]}", ms=_ms(fn, args, a.iters),
+           equal=all(torch.equal(g, w) for g, w in zip(got, want)))
+
+
+def _lsi_split(a, build, record):
+    import torch
+    from chip_smoke import _split_traj
+    from waterorderlib_tpu_torch.drivers import orderparams
+    from waterorderlib_tpu_torch.io.synthetic import make_water_box
+    from waterorderlib_tpu_torch.io.trajectory import Trajectory
+    from waterorderlib_tpu_torch.ops.cuda import lsi
+
+    n, nf = 16384, 64
+    top, traj = make_water_box(n, n_frames=nf, seed=0)
+    ox, _ = _split_traj(n, nf, seed=0)
+    waters = traj.positions.reshape(nf, n, 3, 3)
+    traj = Trajectory((waters - waters[:, :, :1] + ox[:, :, None]).reshape(nf, 3 * n, 3),
+                      traj.boxes)
+    with tempfile.TemporaryDirectory() as d:
+        seen = _captured(lsi, "lsi_split_window",
+                         lambda: orderparams.lsi_calc(top, traj, output_dir=d, device="cuda"))
+        record("lsi_calc split-tier kernel stage", ms=_stage_ms(
+            lambda: orderparams.lsi_calc(top, traj, output_dir=d, device="cuda")))
+    del top, traj
+    args = seen[0]
+    sub = _first(args, 4)
+    got, want = lsi.lsi_split_window(*sub), lsi.lsi_split_window_plain(*sub)
+    v = {"shape": f"{args[0].shape[2]} rows, w {args[4]} / {args[9]} x {args[0].shape[0]} frames",
+         "equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+         "ms": _ms(lsi.lsi_split_window, args, a.iters)}
+    if a.mappings:
+        v.update(_shapes(build, "lsi_split", lsi.lsi_split_window, args,
+                         lsi.lsi_split_window(*args), a))
+    if a.profile:
+        v["profile"] = _profile(f"{a.label} lsi_split_window", lsi.lsi_split_window, args)
+    record("lsi_split_window", **v)
+    n = 131_072
+    ox, boxes = (torch.from_numpy(x).to("cuda") for x in _split_traj(n, 1, seed=n % 997))
+    args = _captured(lsi, "lsi_split_window", lambda: lsi.lsi_certified(ox, boxes))[0]
+    _record_large(a, record, f"lsi_split_window {n} atoms", lsi.lsi_split_window,
+                  lsi.lsi_split_window_plain, args, ((0, 6), (2, 8)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=".", help="the checkout whose package is timed")
     ap.add_argument("--label", default="")
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--kernels", default="voronoi,hbond,lsi",
-                    help="comma-separated groups: voronoi, hbond, lsi")
+    ap.add_argument("--kernels", default="voronoi,hbond,lsi,qtet,lsi_split",
+                    help="comma-separated groups: voronoi, hbond, lsi, qtet, lsi_split")
     ap.add_argument("--mappings", action="store_true")
     ap.add_argument("--profile", action="store_true",
                     help="also each launch's device time by kernel name (torch.profiler)")
@@ -359,7 +520,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     sources = {"voronoi": ["voronoi_topk", "voronoi_cells"], "hbond": ["hbond"],
-               "lsi": ["lsi_window"]}
+               "lsi": ["lsi_window"], "qtet": ["qtet_window"], "lsi_split": ["lsi_window"]}
     build.build_all([src for g in groups for src in sources[g]])
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
@@ -372,7 +533,8 @@ def main() -> int:
         print(f"[ab] {a.label} {key}: {v}", flush=True)
 
     for g in groups:
-        {"voronoi": _voronoi, "hbond": _hbond, "lsi": _lsi}[g](a, build, record)
+        {"voronoi": _voronoi, "hbond": _hbond, "lsi": _lsi, "qtet": _qtet,
+         "lsi_split": _lsi_split}[g](a, build, record)
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0

@@ -42,27 +42,28 @@
 // ascending: equal distances keep the lowest column first, extract_k_min's
 // order; the epilogue recomputes each slot's raw squared distance from its
 // column. The split kernel's top-12 keeps distances only (no payload), and
-// its pass 2 keeps one (raw, imaged) pair. The epilogue follows
-// lsi_epilogue operation by operation: roots by IEEE sqrtf, gaps summed
-// from the final gap in slot order, mean by IEEE division, then the
-// variance in the same order. Squared lengths are the explicit fmaf chain
-// `dot3` (XLA's contraction of the JAX kernels' a*a + b*b + c*c); built with
-// --fmad=false and without fast math, so the plain versions
-// (ops/cuda/lsi.py) agree bit for bit.
+// its scan keeps one (raw, imaged) pair. The epilogues follow lsi_epilogue
+// operation by operation: roots by IEEE sqrtf, gaps summed from the final
+// gap in slot order, mean by IEEE division, then the variance in the same
+// order. Squared lengths are the explicit fmaf chain `dot3` (XLA's
+// contraction of the JAX kernels' a*a + b*b + c*c); built with --fmad=false
+// and without fast math, so the plain versions (ops/cuda/lsi.py) agree bit
+// for bit.
 //
 // What bounds them on this card: instruction issue in the pair scan, ~14
 // FP32 operations per (row, window column) plus the compares, 8 more per
-// annulus candidate in the split kernel's pass 2 for the raw distance; the
-// window is read once per block from device memory (12 bytes a column, 24
-// with the raw columns) and then from shared memory.
+// annulus candidate of the split kernel for the raw distance; the window is
+// read once per block from device memory (12 bytes a column, 24 with the
+// raw columns) and then from shared memory.
+//
+// Both scans take the minimum image by magnitude: for a column - row
+// difference d, fminf(|d|, L - |d|) squares to the compare-selects' mi(d)^2
+// bit for bit (IEEE subtraction is sign-symmetric and rounding monotone;
+// hbond.cu's header gives the argument). Pad copies lie within +/-L in z, so
+// d lies in (-2L, 2L); beyond |d| = L both forms are |d| - L up to sign. 3
+// instructions an axis in place of ~7.
 //
 // The K = 24 kernel (lsi_window_kernel) is laid out for that bound:
-// - The scan's minimum image is taken by magnitude: for a column - row
-//   difference d, fminf(|d|, L - |d|) squares to the compare-selects'
-//   mi(d)^2 bit for bit (IEEE subtraction is sign-symmetric and rounding
-//   monotone; hbond.cu's header gives the argument). Pad copies lie
-//   within +/-L in z, so d lies in (-2L, 2L); beyond |d| = L both forms are
-//   |d| - L up to sign. 3 instructions an axis in place of ~7.
 // - No serial insertion: the lanes of a warp scan the window, lane j the
 //   columns j, j + 32, ...; a candidate in (low, high + 3.7] whose key is
 //   below the row's current 24th goes into the warp's buffer (a float test
@@ -88,8 +89,29 @@
 //   min over (raw bits, slot) keys; the sums in slot order as a shuffle
 //   chain of n_near - 1 steps, every lane adding the same terms in the same
 //   order.
-// The split kernel is one thread a row (kRows rows a block), as first
-// ported.
+// The split kernel (lsi_split_kernel) is one row a thread (kRowsS rows a
+// block), every lane reading the same 4 columns at a time (16-byte
+// broadcast loads, one vote for the 4):
+// - One scan of the union of its two windows, each distinct column once, in
+//   ascending order (up to two column ranges: clamped starts can put the
+//   narrow window partly outside the wide one). A column's imaged dsq is
+//   taken once; it serves the (low, high] test where the column lies in the
+//   narrow window and the (high, high+3.7] test where it lies in the wide
+//   one. The two passes of the serial form took 7168 pairs a row at 16,384
+//   waters, the union 4608.
+// - The vote skips the groups near no row of the warp (beyond
+//   max(high, high + 3.7)); the 12-slot in-shell insertion is branch-free
+//   under a vote (a row has ~6 in-shell neighbors in ~4600 columns), the
+//   raw distance of an annulus candidate predicated. The in-shell slots
+//   carry no payload, so equal values need no order; the next-shell pick
+//   replaces only on a strictly smaller raw distance, the first column among
+//   equal ones in ascending order.
+// - A warp of rows with lanes strided over the columns, the K = 24 kernel's
+//   form, held 128 registers here (4 rows, a WarpSelect each) and recomputed
+//   distances in the annulus path that ~30% of its batches take; one row a
+//   thread needs 64. kRowsS 32 / 64 / 128: 5.025 / 4.894 / 4.931 ms a
+//   64-frame launch at 16,384 rows (ab_voronoi.py --mappings; H100 80GB
+//   HBM3, 700 W).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -98,7 +120,6 @@
 
 namespace {
 
-constexpr int kRows = 128;  // rows a block of the split kernel
 constexpr int kCols = 512;
 constexpr int kTop = 24;  // slots of the K = 24 kernel
 constexpr int kIn = 12;   // in-shell slots of the split kernel
@@ -106,13 +127,12 @@ constexpr int kRowsPerWarp = 4;  // rows a warp of the K = 24 kernel selects for
 constexpr int kWarps24 = 8;      // warps a block of the K = 24 kernel
 constexpr int kRows24 = kWarps24 * kRowsPerWarp;
 static_assert(128 % kRows24 == 0, "a K = 24 block's rows must lie in one 128-row tile");
+constexpr int kRowsS = 64;  // rows a block of the split kernel, one a thread
+static_assert(128 % kRowsS == 0, "a split block's rows must lie in one 128-row tile");
 
-__device__ __forceinline__ float min_image(float d, float box, float half) {
-  d = d > half ? d - box : d;
-  return d < -half ? d + box : d;
-}
-
-// a value whose square is min_image(d, box, box / 2)^2, bit for bit (header)
+// a value whose square is the compare-select minimum image's square,
+// mi(d)^2 with mi(d) = d - L if d > L/2, then + L if below -L/2, bit for
+// bit (header)
 __device__ __forceinline__ float mi_abs(float d, float box) {
   const float a = fabsf(d);
   return fminf(a, box - a);
@@ -170,8 +190,11 @@ __device__ __forceinline__ void lsi_epilogue(const float (&dist)[N], const float
   *n_near_out = n_near;
 }
 
-// lsi_epilogue over kTop slots held one a lane (lane j: slot j; the lanes
-// from kTop on hold empty slots): the same operations in the same order.
+// lsi_kernel.py `lsi_epilogue` over slots held one a lane (lane j: slot j;
+// the lanes past the last slot hold empty ones): dist (imaged distance,
+// +inf where empty), rawsq (raw squared distance, +inf where the slot
+// cannot be the next neighbor), fin (the slot holds a candidate). The same
+// operations in the same order as the sequential epilogue.
 __device__ __forceinline__ void lsi_epilogue_warp(float dist, float rawsq, bool fin, float high,
                                                   float* var_out, bool* ok_out,
                                                   int* n_near_out) {
@@ -321,7 +344,18 @@ lsi_window_kernel(const float* __restrict__ rows, long long row_fs, long long ro
   }
 }
 
-__global__ void __launch_bounds__(kRows)
+// the kIn smallest values so far, ascending (+inf where empty): enter dsq
+// where `take` (dsq < cd[kIn - 1]), branch-free
+__device__ __forceinline__ void insert_in(float (&cd)[kIn], bool take, float dsq) {
+  bool p[kIn];
+#pragma unroll
+  for (int k = 0; k < kIn; ++k) p[k] = take && dsq < cd[k];
+#pragma unroll
+  for (int k = kIn - 1; k > 0; --k) cd[k] = p[k - 1] ? cd[k - 1] : (p[k] ? dsq : cd[k]);
+  cd[0] = p[0] ? dsq : cd[0];
+}
+
+__global__ void __launch_bounds__(kRowsS)
 lsi_split_kernel(const float* __restrict__ rows, long long row_fs, long long row_cs,
                  int n_rows, const float* __restrict__ cols, long long col_fs,
                  long long col_cs, int n_cols, const int* __restrict__ starts, int w,
@@ -332,19 +366,18 @@ lsi_split_kernel(const float* __restrict__ rows, long long row_fs, long long row
                  float high_sq, float outer_sq, float* __restrict__ lsi_out,
                  bool* __restrict__ valid_out, int* __restrict__ count_out,
                  bool* __restrict__ incomplete_out) {
-  __shared__ float sx[kCols], sy[kCols], sz[kCols], srx[kCols], sry[kCols], srz[kCols];
+  __shared__ __align__(16) float sx[kCols], sy[kCols], sz[kCols], srx[kCols], sry[kCols],
+      srz[kCols];
 
   const int f = blockIdx.x / blocks_per_frame;
   const int rb = blockIdx.x - f * blocks_per_frame;
-  const int row = rb * kRows + threadIdx.x;
+  const int row = rb * kRowsS + threadIdx.x;
   const bool live = row < n_rows;
-  const int tile = (rb * kRows) / row_tile;
+  const int tile = (rb * kRowsS) / row_tile;
   const int start_n = starts[tile];
   const int start_w = starts_wide[tile];
   const long long o = (long long)f * n_rows + row;
-
   const float bx = boxes[3 * f + 0], by = boxes[3 * f + 1], bz = boxes[3 * f + 2];
-  const float hx = bx * 0.5f, hy = by * 0.5f, hz = bz * 0.5f;
 
   // a window outside the columns: NaN, and the row is uncertified
   if (start_n < 0 || start_n > n_cols - w || start_w < 0 || start_w > n_cols - w_wide) {
@@ -357,7 +390,8 @@ lsi_split_kernel(const float* __restrict__ rows, long long row_fs, long long row
     return;
   }
 
-  float xr = 0.f, yr = 0.f, zr = 0.f, rxr = 0.f, ryr = 0.f, rzr = 0.f;
+  // a row past n_rows has NaN coordinates: no column lies in either shell
+  float xr = nanf(""), yr = 0.f, zr = 0.f, rxr = 0.f, ryr = 0.f, rzr = 0.f;
   if (live) {
     const float* r = rows + f * row_fs + row;
     xr = r[0];
@@ -369,78 +403,105 @@ lsi_split_kernel(const float* __restrict__ rows, long long row_fs, long long row
     rzr = rr[2 * rr_cs];
   }
   const float inf = __int_as_float(0x7f800000);
+  const float lim = fmaxf(high_sq, outer_sq);  // no pair beyond it is in either shell
 
-  // pass 1: the kIn smallest in-shell squared distances over the narrow
-  // window and the full in-shell count
+  // the union of the two windows, each distinct column once, in ascending
+  // order: one range where they overlap or touch, else two
+  const int end_n = start_n + w, end_w = start_w + w_wide;
+  int lo[2], hi[2];
+  if (max(start_n, start_w) <= min(end_n, end_w)) {
+    lo[0] = min(start_n, start_w);
+    hi[0] = max(end_n, end_w);
+    lo[1] = hi[1] = 0;
+  } else {
+    const bool n_first = start_n < start_w;
+    lo[0] = n_first ? start_n : start_w;
+    hi[0] = n_first ? end_n : end_w;
+    lo[1] = n_first ? start_w : start_n;
+    hi[1] = n_first ? end_w : end_n;
+  }
+
+  // the kIn smallest in-shell squared distances of the narrow window and
+  // its full in-shell count; the wide window's (high, high+3.7] candidate of
+  // least raw squared distance (the first column among equal ones: columns
+  // come in ascending order and only a strictly smaller one replaces it)
+  // and its imaged squared distance
   float cd[kIn];
 #pragma unroll
   for (int k = 0; k < kIn; ++k) cd[k] = inf;
   int count = 0;
-  {
-    const float* cx = cols + f * col_fs + start_n;
-    const float* cy = cx + col_cs;
-    const float* cz = cx + 2 * col_cs;
-    for (int c0 = 0; c0 < w; c0 += kCols) {
-      const int nc = min(kCols, w - c0);
-      __syncthreads();
-      for (int c = threadIdx.x; c < nc; c += kRows) {
-        sx[c] = cx[c0 + c];
-        sy[c] = cy[c0 + c];
-        sz[c] = cz[c0 + c];
-      }
-      __syncthreads();
-      for (int c = 0; c < nc; ++c) {
-        const float dx = min_image(sx[c] - xr, bx, hx);
-        const float dy = min_image(sy[c] - yr, by, hy);
-        const float dz = min_image(sz[c] - zr, bz, hz);
-        const float dsq = dot3(dx, dx, dy, dy, dz, dz);
-        if (!(dsq > low_sq && dsq <= high_sq)) continue;
-        ++count;
-        if (!(dsq < cd[kIn - 1])) continue;
-#pragma unroll
-        for (int k = kIn - 1; k > 0; --k) {
-          cd[k] = dsq < cd[k - 1] ? cd[k - 1] : (dsq < cd[k] ? dsq : cd[k]);
-        }
-        if (dsq < cd[0]) cd[0] = dsq;
-      }
-    }
-  }
-
-  // pass 2: the (high, high+3.7] candidate of least raw squared distance
-  // over the wide window, the first column among equal ones, and its
-  // imaged squared distance
   float best_raw = inf, best_img = 0.f;
-  {
-    const float* cx = cols + f * col_fs + start_w;
-    const float* cy = cx + col_cs;
-    const float* cz = cx + 2 * col_cs;
-    const float* rcx = raw_cols + f * rc_fs + start_w;
-    const float* rcy = rcx + rc_cs;
-    const float* rcz = rcx + 2 * rc_cs;
-    for (int c0 = 0; c0 < w_wide; c0 += kCols) {
-      const int nc = min(kCols, w_wide - c0);
+  const float* cx = cols + f * col_fs;
+  const float* cy = cx + col_cs;
+  const float* cz = cx + 2 * col_cs;
+  const float* rcx = raw_cols + f * rc_fs;
+  const float* rcy = rcx + rc_cs;
+  const float* rcz = rcx + 2 * rc_cs;
+#pragma unroll 1
+  for (int part = 0; part < 2; ++part) {
+    for (int c0 = lo[part]; c0 < hi[part]; c0 += kCols) {
+      const int nc = min(kCols, hi[part] - c0);
+      const int nc4 = (nc + 3) & ~3;  // the tail up to a multiple of 4 is NaN: near no row
       __syncthreads();
-      for (int c = threadIdx.x; c < nc; c += kRows) {
-        sx[c] = cx[c0 + c];
-        sy[c] = cy[c0 + c];
-        sz[c] = cz[c0 + c];
-        srx[c] = rcx[c0 + c];
-        sry[c] = rcy[c0 + c];
-        srz[c] = rcz[c0 + c];
+      for (int c = threadIdx.x; c < nc4; c += kRowsS) {
+        const bool in = c < nc;
+        sx[c] = in ? cx[c0 + c] : nanf("");
+        sy[c] = in ? cy[c0 + c] : 0.f;
+        sz[c] = in ? cz[c0 + c] : 0.f;
+        srx[c] = in ? rcx[c0 + c] : 0.f;
+        sry[c] = in ? rcy[c0 + c] : 0.f;
+        srz[c] = in ? rcz[c0 + c] : 0.f;
       }
       __syncthreads();
-      for (int c = 0; c < nc; ++c) {
-        const float dx = min_image(sx[c] - xr, bx, hx);
-        const float dy = min_image(sy[c] - yr, by, hy);
-        const float dz = min_image(sz[c] - zr, bz, hz);
-        const float dsq = dot3(dx, dx, dy, dy, dz, dz);
-        if (!(dsq > high_sq && dsq <= outer_sq)) continue;
-        const float ex = srx[c] - rxr, ey = sry[c] - ryr, ez = srz[c] - rzr;
-        const float rsq = dot3(ex, ex, ey, ey, ez, ez);
-        if (rsq < best_raw) {
-          best_raw = rsq;
-          best_img = dsq;
+      // 4 columns at a time: 16-byte loads of every lane's same 4 columns,
+      // one vote for the 4
+      for (int c = 0; c < nc4; c += 4) {
+        const float4 X = *reinterpret_cast<const float4*>(sx + c);
+        const float4 Y = *reinterpret_cast<const float4*>(sy + c);
+        const float4 Z = *reinterpret_cast<const float4*>(sz + c);
+        const float xs[4] = {X.x, X.y, X.z, X.w}, ys[4] = {Y.x, Y.y, Y.z, Y.w};
+        const float zs[4] = {Z.x, Z.y, Z.z, Z.w};
+        float dsq[4];
+        bool any = false;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float ex = mi_abs(xs[k] - xr, bx);
+          const float ey = mi_abs(ys[k] - yr, by);
+          const float ez = mi_abs(zs[k] - zr, bz);
+          dsq[k] = dot3(ex, ex, ey, ey, ez, ez);
+          any = any || dsq[k] <= lim;
         }
+        // most groups are near no row of the warp
+        if (!__any_sync(kFull, any)) continue;
+        const float4 RX = *reinterpret_cast<const float4*>(srx + c);
+        const float4 RY = *reinterpret_cast<const float4*>(sry + c);
+        const float4 RZ = *reinterpret_cast<const float4*>(srz + c);
+        const float rxs[4] = {RX.x, RX.y, RX.z, RX.w}, rys[4] = {RY.x, RY.y, RY.z, RY.w};
+        const float rzs[4] = {RZ.x, RZ.y, RZ.z, RZ.w};
+        bool take[4], any_take = false;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          // the in-shell test applies to the narrow window, the annulus to
+          // the wide one (the column is the same in every lane); columns in
+          // ascending order, so a strictly smaller raw distance alone
+          // replaces the pick
+          const int col = c0 + c + k;
+          const bool shell = (unsigned)(col - start_n) < (unsigned)w && dsq[k] > low_sq &&
+                             dsq[k] <= high_sq;
+          count += shell ? 1 : 0;
+          take[k] = shell && dsq[k] < cd[kIn - 1];
+          any_take = any_take || take[k];
+          const bool ann = (unsigned)(col - start_w) < (unsigned)w_wide && dsq[k] > high_sq &&
+                           dsq[k] <= outer_sq;
+          const float fx = rxs[k] - rxr, fy = rys[k] - ryr, fz = rzs[k] - rzr;
+          const float rsq = dot3(fx, fx, fy, fy, fz, fz);
+          const bool better = ann && rsq < best_raw;
+          best_raw = better ? rsq : best_raw;
+          best_img = better ? dsq[k] : best_img;
+        }
+        if (!__any_sync(kFull, any_take)) continue;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) insert_in(cd, take[k], dsq[k]);
       }
     }
   }
@@ -510,10 +571,10 @@ extern "C" int lsi_split_launch(const float* rows, long long row_fs, long long r
                                 int* count, bool* incomplete, void* stream) {
   int blocks_per_frame;
   unsigned n_blocks;
-  const int err = grid(n_rows, kRows, n_frames, &blocks_per_frame, &n_blocks);
+  const int err = grid(n_rows, kRowsS, n_frames, &blocks_per_frame, &n_blocks);
   if (err != 0) return err;
   if (n_blocks == 0) return 0;
-  lsi_split_kernel<<<n_blocks, kRows, 0, (cudaStream_t)stream>>>(
+  lsi_split_kernel<<<n_blocks, kRowsS, 0, (cudaStream_t)stream>>>(
       rows, row_fs, row_cs, n_rows, cols, col_fs, col_cs, n_cols, starts, w, boxes,
       blocks_per_frame, row_tile, raw_rows, rr_fs, rr_cs, raw_cols, rc_fs, rc_cs, starts_wide,
       w_wide, low_sq, high, high_sq, outer_sq, lsi, valid, count, incomplete);
