@@ -69,7 +69,8 @@ Phases (each raises on failure; nothing is caught):
    frames of it, with its share of the bound (the q, split LSI, H-bond and
    K=24 LSI kernels' device time alone, from torch.profiler, comes after
    the last phase from `python3 chip_smoke.py --alone q` and `--alone hb`,
-   each a process of its own, as `[alone]` lines);
+   each a process of its own, as `[alone]` lines; the Voronoi window
+   search's at its four launches from `--alone vor`);
 6. 131,072 and 1,048,576 atoms, 1 frame: each certified dispatch must take
    the slab tier (LSI at high_cut 3.7 A: "slab-split" at 131,072 atoms of
    `_split_traj`'s lattice, the K=24 "slab" on `_lattice_traj`'s, whose
@@ -112,22 +113,31 @@ Phases (each raises on failure; nothing is caught):
 10. the Voronoi volumes slice (`_voronoi_phases`): both forms of
    `voronoi_topk.cu` equal to their plain versions (dist and payload) at
    12,294 points (the window form with `_suggest_win`'s window, its full
-   scan at k 256 on 64 rows, the cell-grid form at k 64), on a 2,048-row
-   subset at k 96, 128 and 192 (the escalation grids), at 2,048 waters on
-   the pruned mirror set, and on a planted tie, within a window and across
-   cells; the cell-grid form in both its mappings (rows grouped by cell,
-   one warp a row) wherever both fit; `voronoi_calc(engine=
+   scan at k 256 on 64 rows and on rows at both ends of the z-sorted array,
+   the cell-grid form at k 64), on a 2,048-row subset at k 96, 128 and 192
+   (the escalation grids), at 2,048 waters on the pruned mirror set, and on
+   planted ties: within a window, at the k-th distance on both sides of a
+   full scan's row (k 96 and 256), across cells; the window form at every
+   split (1, 2, 4 and 8 warps a row), the cell-grid form in both its
+   mappings (rows grouped by cell, one warp a row) wherever both fit;
+   `voronoi_calc(engine=
    "device")` on `make_water_box(12288, 32 frames, 6-atom solute)` in two
    chunks of 16 (tier 1 on the cell-grid form; the certified count of each
    tier and the host closes printed), frames 0-1 against Qhull in float64
    (every cell within 1.5e-3) and the host engine, `chunk_frames=1` equal
    to one chunk; `voronoi_calc` at 2,048 waters x 16 frames (tier 1 on
    the window form); each form's time at its main-path launch beside its
-   bound, its plain version and `torch.topk` on the same distances, and
-   its kernels' own device time (torch.profiler); the cell-grid form also
-   at each escalation tier's real launch in a 16-frame chunk (the rows that
-   reach the tier, its grid and k; equal to the plain version in both
-   mappings); a warm `voronoi_calc` on the stage clock;
+   bound, its plain version and `torch.topk` at the launch's k on the same
+   distances, and its kernels' own device time (torch.profiler); the
+   cell-grid form also at each escalation tier's real launch in a 16-frame
+   chunk (the rows that reach the tier, its grid and k; equal to the plain
+   version in both mappings); the window form at its four launches
+   captured from `voronoi_volumes_hybrid_frames` (the last tier's full scan
+   of a 16-frame chunk at 12,294 points; tier 1 and the (48, 96) and (64,
+   128) full scans at 2,048 waters x 16 frames), each equal to its plain
+   version at every split, its bound counted from the lanes the data needs
+   (fl(dz*dz) within the row's k-th dsq) beside the lanes the kernel
+   tested and its windows' lanes; a warm `voronoi_calc` on the stage clock;
 11. the fused cell kernel and the Voronoi contacts slice
    (`_voronoi_cells_phases`, `_voronoi_contacts_phases`):
    `voronoi_cells.cu` against its plain version (flags and face vertex
@@ -307,15 +317,17 @@ N_FRAMES_LEGACY_PLAIN = 8
 # frames in voronoi_calc's chunks of 16; 2,048 waters x 16 frames, where
 # tier 1 takes the z-window form on the pruned mirror set; the escalation
 # tiers' grid checks on a 2,048-row subset, the last tier's full scan on 64
-# rows. Certified cells against Qhull in float64 (the JAX package's f32
-# band) and per-frame means against the host engine
+# rows (its main-path launch: 64 rows a frame x 16 frames). Certified cells
+# against Qhull in float64 (the JAX package's f32 band) and per-frame means
+# against the host engine
 VOR_N, VOR_FRAMES, VOR_SMALL, VOR_SMALL_FRAMES = 12_288, 32, 2_048, 16
 VOR_SOLUTE = ["C", "C", "O", "C", "C", "O"]
 VOR_SUBSET, VOR_LAST_ROWS = 2_048, 64
 VOR_REF_TOL, VOR_MEAN_TOL = 1.5e-3, 5e-3
 # float32 operations per (row, candidate lane) the search must do: 3
 # subtracts, 3 products, 2 adds, the comparison with the k-th distance.
-# Lanes counted from the data: a window's every candidate; a row's 27 cells'
+# Lanes counted from the data: a window's candidates whose fl(dz*dz) is
+# within the row's k-th dsq (`_vor_window_lanes`); a row's 27 cells'
 # members (not their empty slots)
 VOR_LANE_FLOPS = 9
 # the Voronoi contacts slice: the fused cell kernel against its plain
@@ -1669,24 +1681,87 @@ def _vor_cmp_mappings(label, args, errs):
     return got, names[picked]
 
 
-def _captured_cellgrid(fn):
-    """Run fn; the arguments of every cell-grid search launch it made (each
-    launch runs as usual, and the kernel's count is left alone)."""
+def _captured_vtopk(fn, *names):
+    """Run fn; the arguments of every launch it made of each search wrapper
+    `names` of ops/cuda/voronoi_topk.py, {name: [args, ...]} (each launch
+    runs as usual, and the wrappers' counts are left alone)."""
     from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
 
-    real, seen = vtopk.voronoi_cellgrid_topk, []
+    real = {name: getattr(vtopk, name) for name in names}
+    seen = {name: [] for name in names}
 
-    def record(*args):
-        seen.append(args)
-        return real(*args)
+    def recorder(name):
+        def record(*args):
+            seen[name].append(args)
+            return real[name](*args)
 
-    record.launches = 0  # the wrapper counts its launches on the module's name for it
-    vtopk.voronoi_cellgrid_topk = record
+        record.launches = 0  # the wrapper counts its launches on the module's name for it
+        return record
+
+    for name in names:
+        setattr(vtopk, name, recorder(name))
     try:
         fn()
     finally:
-        vtopk.voronoi_cellgrid_topk = real
+        for name in names:
+            setattr(vtopk, name, real[name])
     return seen
+
+
+def _vor_cmp_splits(label, args, errs):
+    """The window kernel against its plain version, exactly, at the warps a
+    row (`_window_split`) the wrapper picks for these rows and at each
+    other split. Returns the picked split's output."""
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
+
+    wk, wp = vtopk.voronoi_window_topk, vtopk.voronoi_window_topk_plain
+    pick = vtopk._window_split
+    picked = pick(args[0].shape[0] * args[0].shape[1])
+    got = _vor_cmp(f"{label}, {picked} warps a row (picked)", wk, wp, args, errs)
+    try:
+        for split in vtopk.WINDOW_SPLITS:
+            if split != picked:
+                vtopk._window_split = lambda _, s=split: s
+                _vor_cmp(f"{label}, {split} warps a row", wk, wp, args, errs)
+    finally:
+        vtopk._window_split = pick
+    return got
+
+
+def _vor_tie_args(k, dev):
+    """A full scan whose one row ties at its k-th distance on both sides
+    (tests/test_torch_voronoi_topk_kernel_design.py's fixture): the row at
+    O = (50, 50, 50), itself a candidate; k - 2 candidates within 5.9 A and
+    2 A in z; six at exactly 6 A along the axes (dsq 36), so P- = O - 6 z and
+    P+ = O + 6 z have fl(dz*dz) equal to the k-th dsq; 40 far in x at each of
+    z = 44 and z = 56, P- first and P+ last of its z in the stable order;
+    400 between 6.05 and 6.7 A with 2 < |dz| < 5.5 (their merges bring the
+    bound down to the k-th dsq before the scan reaches z = 44); 300 fillers
+    far in x. Slots k - 1 and k go to P- and the first of those at z = 50:
+    a side stopped at fl(dz*dz) >= the bound would lose P-."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(k)
+    inner, shell = [], []
+    while len(inner) < k - 2:
+        v = np.round(rs.uniform(-5.9, 5.9, 3) * 16.0) / 16.0
+        if 0.0 < np.dot(v, v) < 5.9**2 and abs(v[2]) < 2.0:
+            inner.append(v)
+    while len(shell) < 400:
+        v = rs.normal(size=3)
+        v *= rs.uniform(6.05, 6.7) / np.linalg.norm(v)
+        if 2.0 < abs(v[2]) < 5.5:
+            shell.append(v)
+    axes = np.array([[0, 0, -6], [6, 0, 0], [-6, 0, 0], [0, 6, 0], [0, -6, 0], [0, 0, 6]])
+    block = [[20.0 + 0.5 * i, 0.0, dz] for dz in (-6.0, 6.0) for i in range(40)]
+    fill = np.stack([rs.uniform(15.0, 30.0, 300) * rs.choice([-1, 1], 300),
+                     rs.uniform(-30.0, 30.0, 300), rs.uniform(-36.0, 36.0, 300)], -1)
+    cand = np.concatenate([[[0.0, 0.0, 0.0]], axes[:1], inner, axes[1:5], block, axes[5:], fill,
+                           shell]) + 50.0
+    ext = cand[np.argsort(cand[:, 2], kind="stable")].astype(np.float32)
+    return (torch.full((1, 1, 3), 50.0, device=dev), torch.as_tensor(ext, device=dev)[None],
+            torch.zeros((1, 1), dtype=torch.int32, device=dev), k, 1, ext.shape[0])
 
 
 def _device_us(ev):
@@ -1785,21 +1860,31 @@ def _vor_bound_ms(lanes, in_bytes, rows, k):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _vor_dsq_window(args):
-    """The (rows, win) squared-distance matrix of a window launch, for
-    torch.topk's time (computed once, outside the timing)."""
+def _vor_window_lanes(args):
+    """(lanes a window launch needs, lanes its windows hold, its (rows, win)
+    squared distances for torch.topk): per row, the candidates of its window
+    whose fl(dz*dz) is at most its k-th dsq, the rest lying beyond the
+    kernel's exact stop (all of them where the window holds fewer than k
+    candidates with 0 < dsq < inf); dsq formed as the kernel forms it."""
+    import math
+
     import torch
 
     cs, exts, start, k, rb, win = args
     F, R, _ = cs.shape
     lanes = torch.arange(win, device=cs.device)
-    out = []
+    needed, out = 0, []
     for f in range(F):
         cand = exts[f][start[f].long()[:, None] + lanes]  # (nb, win, 3)
         c = cs[f].reshape(-1, rb, 3)
-        d = c[:, :, None, :] - cand[:, None, :, :]
-        out.append(((d * d).sum(-1)).reshape(R, win))
-    return torch.cat(out)
+        dx, dy, dz = (c[:, :, None, a] - cand[:, None, :, a] for a in range(3))
+        dz2 = (dz * dz).reshape(R, win)
+        dsq = ((dx * dx + dy * dy) + dz * dz).reshape(R, win)
+        kept = torch.where((dsq > 0) & (dsq < math.inf), dsq, torch.full_like(dsq, math.inf))
+        kth = torch.topk(kept, min(k, win), largest=False).values[:, -1]
+        needed += int((dz2 <= kth[:, None]).sum())
+        out.append(dsq)
+    return needed, F * R * win, torch.cat(out)
 
 
 def _vor_dsq_cellgrid(args):
@@ -1823,10 +1908,13 @@ def _vor_dsq_cellgrid(args):
 def _voronoi_kernel_checks(card, kernels, errs):
     """Both forms of csrc/voronoi_topk.cu against their plain versions,
     exactly, at the main path's shapes: the window form at 12,294 points
-    (k 64, _suggest_win's window), its full scan at k 256 on 64 rows, and
-    at 2,048 waters on the pruned mirror set; the cell-grid form at 12,294
-    points (k 64, s_factor 1.12) and at k 96, 128 and 192 on a 2,048-row
-    subset (s_factor 1.4); a planted tie."""
+    (k 64, _suggest_win's window), its full scan at k 256 on 64 rows and on
+    rows at both ends of the z-sorted array and beyond it, and at 2,048
+    waters on the pruned mirror set, each at every split (warps a row); the
+    cell-grid form at 12,294 points (k 64, s_factor 1.12) and at k 96, 128
+    and 192 on a 2,048-row subset (s_factor 1.4); planted ties: four
+    candidates at one distance in a window, a tie at the k-th distance on
+    both sides of a full scan's row (k 96 and 256), and one across cells."""
     import numpy as np
     import torch
     from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
@@ -1845,12 +1933,27 @@ def _voronoi_kernel_checks(card, kernels, errs):
     ext = vd.mirror_points_device(pts, box_t)
     p4 = ext.shape[1]
     win = vd._suggest_win(n, p4, box_l, 64)
-    _vor_cmp(f"{n} points, k 64, win {win} of {p4}", wk, wp,
-             _vor_window_args(vd, pts, ext, 64, 256, win), errs)
+    _vor_cmp_splits(f"{n} points, k 64, win {win} of {p4}",
+                    _vor_window_args(vd, pts, ext, 64, 256, win), errs)
     rs = np.random.RandomState(3)
     last = torch.as_tensor(rs.choice(n, VOR_LAST_ROWS, replace=False), device=dev)
-    _vor_cmp(f"full scan, k 256, {VOR_LAST_ROWS} rows x {p4} candidates", wk, wp,
-             _vor_window_args(vd, pts[:, last], ext, 256, VOR_LAST_ROWS, p4), errs)
+    full = _vor_window_args(vd, pts[:, last], ext, 256, VOR_LAST_ROWS, p4)
+    _vor_cmp_splits(f"full scan, k 256, {VOR_LAST_ROWS} rows x {p4} candidates", full, errs)
+    # rows at both ends of the z-sorted candidates (on candidates 0, 1, 2 and
+    # the last three) and 3 A beyond them
+    e, up = full[1][0], torch.tensor([0.0, 0.0, 3.0], device=dev)
+    ends = torch.stack([e[0] - up, e[0], e[1], e[2], e[-3], e[-2], e[-1], e[-1] + up])[None]
+    _vor_cmp_splits("full scan, k 256, 8 rows at the array's ends", (
+        ends.contiguous(), full[1], torch.zeros((1, 1), dtype=torch.int32, device=dev), 256, 8,
+        p4), errs)
+    for kt in (96, 256):
+        targs = _vor_tie_args(kt, dev)
+        got = _vor_cmp_splits(f"full scan, k {kt}, a tie at the k-th distance on both sides of "
+                              f"the row", targs, errs)
+        z_kept = targs[1][0, got[1][0, 0].long(), 2]
+        _check(float(got[0][0, 0, kt - 1]) == 6.0 and int((got[0][0, 0] == 6.0).sum()) == 2
+               and bool((z_kept == 44.0).any()) and not bool((z_kept == 56.0).any()),
+               f"planted k-th tie at k {kt}: not the two lowest tied positions")
     cg = vd._suggest_cellgrid(n, box_l, 64)
     _check(cg is not None, f"no cell grid at {n} points")
     args, _ = _vor_cellgrid_args(vd, pts, ext, box_t, 64, cg)
@@ -1868,8 +1971,8 @@ def _voronoi_kernel_checks(card, kernels, errs):
     _check(budget > 0, f"no mirror pruning at {VOR_SMALL} waters")
     ext2, _, _ = vd.mirror_points_pruned(pts2, torch.tensor([box2], device=dev), budget)
     win2 = vd._suggest_win(len(heavy2), ext2.shape[1], box2, 64)
-    _vor_cmp(f"{VOR_SMALL} waters, pruned mirrors ({ext2.shape[1]}), k 64, win {win2}", wk, wp,
-             _vor_window_args(vd, pts2, ext2, 64, 256, win2), errs)
+    _vor_cmp_splits(f"{VOR_SMALL} waters, pruned mirrors ({ext2.shape[1]}), k 64, win {win2}",
+                    _vor_window_args(vd, pts2, ext2, 64, 256, win2), errs)
     # a planted tie: four candidates at one distance (lanes 3, 7, 40, 41)
     # and a coincident one (lane 10, dropped); the lowest lanes win
     c = torch.zeros((1, 8, 3), device=dev)
@@ -1935,18 +2038,16 @@ def _voronoi_phases(card, kernels, errs, launches, times):
     scan), against Qhull in float64 and the host engine on frames 0-1, and
     chunk_frames=1 against 16 on 2 frames; voronoi_calc at 2,048 waters x
     16 frames (tier 1 on the window form, pruned mirrors); each form's
-    time at its main-path launch beside its bound, its plain version and
+    times at its main-path launches beside its bound, its plain version and
     torch.topk; a warm voronoi_calc on the stage clock."""
     import numpy as np
     import torch
     from waterorderlib_tpu_torch.drivers.voronoi_driver import voronoi_calc
-    from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
     from waterorderlib_tpu_torch.surface import voronoi_device as vd
     from waterorderlib_tpu_torch.surface.voronoi import voronoi_volumes
 
     dev = torch.device("cuda")
     _voronoi_kernel_checks(card, kernels, errs)
-    wk, wp = kernels["voronoi_window_topk"]
     ck, cp = kernels["voronoi_cellgrid_topk"]
 
     top, traj, heavy, nw = _vor_system(VOR_N, VOR_FRAMES, 0, VOR_SOLUTE)
@@ -2025,47 +2126,33 @@ def _voronoi_phases(card, kernels, errs, launches, times):
           flush=True)
 
     # times at the main path's launches: the cell-grid form's tier 1 of a
-    # 16-frame chunk at 12,294 points; the window form's tier 1 at 2,048
-    # waters x 16 frames (pruned mirrors)
+    # 16-frame chunk at 12,294 points; the window form's launches captured
+    # from voronoi_volumes_hybrid_frames: (a) the last tier's full scan of
+    # that chunk, (b) tier 1 at 2,048 waters x 16 frames (pruned mirrors),
+    # (c) and (d) that call's (48, 96) and (64, 128) full scans
     pb = torch.as_tensor(traj.positions[:16][:, heavy], device=dev)
     bl = torch.as_tensor(traj.boxes[:16, 0], device=dev)
     cg = vd._suggest_cellgrid(len(heavy), float(bl.min()), 64)
     c_args, _ = _vor_cellgrid_args(vd, pb[:, :nw], vd.mirror_points_device(pb, bl), bl, 64, cg)
-    pb2 = torch.as_tensor(traj2.positions[:, heavy2], device=dev)
-    bl2 = torch.as_tensor(traj2.boxes[:, 0], device=dev)
-    _, win2, mb2, _ = vd._batch_static_config(traj2.positions[:, heavy2], traj2.boxes[:, 0],
-                                              32, 64, torch.float32)
-    ext2, _, _ = vd.mirror_points_pruned(pb2, bl2, mb2)
-    w_args = _vor_window_args(vd, pb2[:, :nw2], ext2, 64, 256, win2)
-    for name, kern, plain, args in (("voronoi_cellgrid_topk", ck, cp, c_args),
-                                    ("voronoi_window_topk", wk, wp, w_args)):
-        rows = args[0].shape[0] * args[0].shape[1]
-        if name == "voronoi_cellgrid_topk":
-            lanes = _vor_cellgrid_lanes(args)
-            in_bytes = 16 * rows + 16 * args[3].numel()  # centers, cell ids; table slots
-            dsq = _vor_dsq_cellgrid(args)
-            shape = f"{rows} rows x 27 cells of cap {args[3].shape[-1]}, grid {cg}"
-        else:
-            lanes = rows * args[5]
-            in_bytes = 12 * rows + 12 * args[1].numel() // 3 + 4 * args[2].numel()
-            dsq = _vor_dsq_window(args)
-            shape = f"{rows} rows x win {args[5]} of {args[1].shape[1]} candidates"
-        ms = _ms(kern, args, 5)
-        plain_ms = _ms(plain, args, 1)
-        lib_ms = _ms(lambda x: torch.topk(x, 64, largest=False), (dsq,), 5)
-        alone = _device_ms(kern, args, "topk_kernel" if name == "voronoi_window_topk"
-                           else "cellgrid_")
-        bound, bound_by = _vor_bound_ms(lanes, in_bytes, rows, 64)
-        times[name] = (ms, plain_ms, bound, bound_by, lib_ms)
-        print(f"[time] {name}, tier 1 of a {args[0].shape[0]}-frame batch ({shape}, {lanes} "
-              f"lanes): kernel {ms:.5f} ms (its kernels alone on the card {alone:.5f} ms), plain "
-              f"{plain_ms:.3f} ms, torch.topk on the {tuple(dsq.shape)} distances {lib_ms:.5f} "
-              f"ms, bound {bound:.5f} ms ({bound_by}); {card}", flush=True)
-        del dsq
+    rows = c_args[0].shape[0] * c_args[0].shape[1]
+    lanes = _vor_cellgrid_lanes(c_args)
+    dsq = _vor_dsq_cellgrid(c_args)
+    ms, plain_ms = _ms(ck, c_args, 5), _ms(cp, c_args, 1)
+    lib_ms = _ms(lambda x: torch.topk(x, 64, largest=False), (dsq,), 5)
+    alone = _device_ms(ck, c_args, "cellgrid_")
+    # centers, cell ids; table slots
+    bound, bound_by = _vor_bound_ms(lanes, 16 * rows + 16 * c_args[3].numel(), rows, 64)
+    times["voronoi_cellgrid_topk"] = (ms, plain_ms, bound, bound_by, lib_ms)
+    print(f"[time] voronoi_cellgrid_topk, tier 1 of a {c_args[0].shape[0]}-frame batch ({rows} "
+          f"rows x 27 cells of cap {c_args[3].shape[-1]}, grid {cg}, {lanes} lanes): kernel "
+          f"{ms:.5f} ms (its kernels alone on the card {alone:.5f} ms), plain {plain_ms:.3f} ms, "
+          f"torch.topk on the {tuple(dsq.shape)} distances {lib_ms:.5f} ms, bound {bound:.5f} ms "
+          f"({bound_by}); {card}", flush=True)
+    del dsq, c_args
+    seen, w_launches = _vor_launches((traj, heavy, nw), (traj2, heavy2, nw2))
+    _vor_window_times(card, errs, times, w_launches)
     # the escalation tiers of a 16-frame chunk at their own shapes: the rows
     # that reach each tier, its grid (_suggest_cellgrid, s_factor 1.4) and k
-    seen = _captured_cellgrid(lambda: vd.voronoi_volumes_hybrid_frames(
-        traj.positions[:16][:, heavy], traj.boxes[:16, 0].astype(np.float64), nw, device="cuda"))
     _check(len(seen) >= 2 and seen[0][5] == 64,
            f"the chunk's cell-grid launches: k {[a[5] for a in seen]}")
     for args in seen[1:]:
@@ -2084,17 +2171,70 @@ def _voronoi_phases(card, kernels, errs, launches, times):
               f"{alone:.5f} ms), plain {plain_ms:.3f} ms, torch.topk on the {tuple(dsq.shape)} "
               f"distances {lib_ms:.5f} ms, bound {bound:.5f} ms ({bound_by}); {card}", flush=True)
         del dsq
-    del seen
-    last_args = _vor_window_args(vd, pb[:1, torch.arange(VOR_LAST_ROWS, device=dev) * 97],
-                                 vd.mirror_points_device(pb[:1], bl[:1]), 256, VOR_LAST_ROWS,
-                                 4 * len(heavy))
-    print(f"[time] voronoi_window_topk, the last tier's full scan ({VOR_LAST_ROWS} rows x "
-          f"{4 * len(heavy)} candidates, k 256): kernel {_ms(wk, last_args, 5):.5f} ms; {card}",
-          flush=True)
-    del pb, bl, c_args, pb2, ext2, w_args, last_args
+    del seen, pb, bl
     torch.cuda.empty_cache()
     _stages("voronoi_calc", lambda d: voronoi_calc(top, traj[:16], output_dir=d,
                                                    engine="device", device="cuda"))
+
+
+def _vor_launches(chunk, small):
+    """The search launches of voronoi_volumes_hybrid_frames, captured: on
+    the first 16 frames of `chunk` (traj, heavy, n_waters; 12,294 points)
+    the cell-grid form's (tier 1 and the escalation tiers) and the window
+    form's (a), the last tier's full scan; on `small` (2,048 waters x 16
+    frames, pruned mirrors at tier 1) the window form's (b) tier 1, (c) and
+    (d) the (48, 96) and (64, 128) full scans. Returns (the cell-grid
+    launches, [(a), (b), (c), (d)])."""
+    import numpy as np
+    from waterorderlib_tpu_torch.surface import voronoi_device as vd
+
+    (traj, heavy, nw), (traj2, heavy2, nw2) = chunk, small
+    seen = _captured_vtopk(lambda: vd.voronoi_volumes_hybrid_frames(
+        traj.positions[:16][:, heavy], traj.boxes[:16, 0].astype(np.float64), nw, device="cuda"),
+        "voronoi_cellgrid_topk", "voronoi_window_topk")
+    rest = _captured_vtopk(lambda: vd.voronoi_volumes_hybrid_frames(
+        traj2.positions[:, heavy2], traj2.boxes[:, 0].astype(np.float64), nw2, device="cuda"),
+        "voronoi_window_topk")["voronoi_window_topk"]
+    _check(len(seen["voronoi_window_topk"]) == 1 and len(rest) == 3,
+           f"the window form's launches: {len(seen['voronoi_window_topk'])} at {len(heavy)} "
+           f"points (the last tier), {len(rest)} at {len(heavy2)} points (tiers 1-3)")
+    return seen["voronoi_cellgrid_topk"], seen["voronoi_window_topk"] + rest
+
+
+def _vor_window_times(card, errs, times, launches):
+    """The window form at its four main-path launches (`_vor_launches`),
+    each equal to its plain version at every split; its time, the plain
+    version's, torch.topk's at the launch's k, the lanes the data needs,
+    the kernel tests and the windows hold, and the bound (its kernel's own
+    device time: `--alone vor`). Puts (b) in `times`."""
+    import torch
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
+
+    dev = torch.device("cuda")
+    wk, wp = vtopk.voronoi_window_topk, vtopk.voronoi_window_topk_plain
+    for tag, args in zip("abcd", launches):
+        cs, exts, starts, k, _, win = args
+        rows = cs.shape[0] * cs.shape[1]
+        label = (f"launch ({tag}), {cs.shape[0]} frames x {cs.shape[1]} rows x win {win} of "
+                 f"{exts.shape[1]}, k {k}")
+        _vor_cmp_splits(label, args, errs)
+        needed, in_window, dsq = _vor_window_lanes(args)
+        tested = torch.zeros(1, dtype=torch.int64, device=dev)
+        wk(*args, tested=tested)
+        ms, plain_ms = _ms(wk, args, 5), _ms(wp, args, 1)
+        lib_ms = _ms(lambda x, k=k: torch.topk(x, k, largest=False), (dsq,), 5)
+        in_bytes = 12 * rows + 12 * exts.shape[0] * exts.shape[1] + 4 * starts.numel()
+        bound, bound_by = _vor_bound_ms(needed, in_bytes, rows, k)
+        w_bound, w_by = _vor_bound_ms(in_window, in_bytes, rows, k)
+        if tag == "b":
+            times["voronoi_window_topk"] = (ms, plain_ms, bound, bound_by, lib_ms)
+        print(f"[time] voronoi_window_topk {label} ({vtopk._window_split(rows)} warps a row): "
+              f"kernel {ms:.5f} ms, plain {plain_ms:.3f} ms, torch.topk (k {k}) on the "
+              f"{tuple(dsq.shape)} distances {lib_ms:.5f} ms; lanes needed {needed} (fl(dz*dz) "
+              f"<= the row's k-th dsq), tested by the kernel {int(tested)}, in the windows "
+              f"{in_window}; bound {bound:.5f} ms ({bound_by}; on the windows' lanes "
+              f"{w_bound:.5f} ms, {w_by}); {card}", flush=True)
+        del dsq
 
 
 def _cells_args(vd, pb, bl, k, ks, n_centers=None, rows=None):
@@ -2520,14 +2660,16 @@ def _rows_vs_host(top, traj):
 
 
 def _alone(group: str) -> int:
-    """`python3 chip_smoke.py --alone q` or `--alone hb`: the device time alone
-    (torch.profiler) of `q_window` (its row form), `lsi_split_window` and
-    `q_window_hist` (one frame: the lane form), or of `lsi_window`,
-    `hbond_dense` and `hbond_slab`, at their slices' launches, as phases 5
-    and 9 time them, in a process of its own for each group. Late in the
-    main run torch.profiler sessions lose kernel events (readings of 0, or
-    of one launch in three, on the H100), so the main run keeps only the
-    Voronoi kernels' readings, which come first there."""
+    """`python3 chip_smoke.py --alone q`, `--alone hb` or `--alone vor`: the
+    device time alone (torch.profiler) of `q_window` (its row form),
+    `lsi_split_window` and `q_window_hist` (one frame: the lane form), of
+    `lsi_window`, `hbond_dense` and `hbond_slab`, at their slices' launches,
+    as phases 5 and 9 time them, or of `voronoi_window_topk` at its four
+    launches (`_vor_launches`), in a process of its own for each group.
+    Late in the main run torch.profiler sessions lose kernel events
+    (readings of 0, or of one launch in three, on the H100), so the main
+    run keeps only the cell-grid and cell kernels' readings, which come
+    first there."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2535,9 +2677,20 @@ def _alone(group: str) -> int:
         return 1
     sys.path.insert(0, REPO)
     from waterorderlib_tpu_torch.io.synthetic import make_water_box
-    from waterorderlib_tpu_torch.ops.cuda import hbond, lsi, qtet2, slab
+    from waterorderlib_tpu_torch.ops.cuda import hbond, lsi, qtet2, slab, voronoi_topk
 
     card, dev = _card(), torch.device("cuda")
+    if group == "vor":
+        _, traj, heavy, nw = _vor_system(VOR_N, VOR_FRAMES, 0, VOR_SOLUTE)
+        _, traj2, heavy2, nw2 = _vor_system(VOR_SMALL, VOR_SMALL_FRAMES, 5)
+        _, launches = _vor_launches((traj, heavy, nw), (traj2, heavy2, nw2))
+        for tag, args in zip("abcd", launches):
+            ms = _device_ms(voronoi_topk.voronoi_window_topk, args, "topk_kernel")
+            print(f"[alone] voronoi_window_topk launch ({tag}), {args[0].shape[0]} frames x "
+                  f"{args[0].shape[1]} rows x win {args[5]}, k {args[3]}: its kernel alone on the "
+                  f"card (torch.profiler, a process of its own) {ms:.5f} ms a call; {card}",
+                  flush=True)
+        return 0
     top, traj = make_water_box(N_WATERS, n_frames=N_FRAMES_SLICE, seed=0)
     wat_pos = torch.as_tensor(traj.positions[:, top.get_wat_inds()[0]], dtype=torch.float32,
                               device=dev)
@@ -3333,10 +3486,10 @@ def main() -> int:
     _voronoi_cells_phases(card, kernels, errs, launches, times)
     _voronoi_contacts_phases(card, kernels, errs, launches)
 
-    # the redesigned q and split LSI kernels', and the H-bond and K=24 LSI
-    # kernels', device time alone, each group in a process of its own
-    # (`_alone`)
-    for group in ("q", "hb"):
+    # the redesigned q and split LSI kernels', the H-bond and K=24 LSI
+    # kernels' and the Voronoi window search's device time alone, each group
+    # in a process of its own (`_alone`)
+    for group in ("q", "hb", "vor"):
         subprocess.run([sys.executable, os.path.abspath(__file__), "--alone", group], check=True,
                        timeout=900)
 

@@ -259,6 +259,10 @@ def test_wrappers_check_their_inputs():
                                   64)
     with pytest.raises(RuntimeError):
         vtopk.voronoi_window_topk(c.to("meta"), e.to("meta"), st.to("meta"), 3, 8, 64)
+    with pytest.raises(ValueError):  # the lane count is the kernel's: an int64 (1,) tensor
+        vtopk.voronoi_window_topk(c, e, st, 3, 8, 64, tested=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError):  # and CPU tensors run the plain version
+        vtopk.voronoi_window_topk(c, e, st, 3, 8, 64, tested=torch.zeros(1, dtype=torch.int64))
     tbl = torch.zeros((1, 27, 3, 4))
     ids = torch.zeros((1, 27, 4), dtype=torch.int32)
     cid = torch.tensor([[13]], dtype=torch.int32)

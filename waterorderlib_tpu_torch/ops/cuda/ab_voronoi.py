@@ -2,13 +2,19 @@
 them, on the card, each at launches captured from its driver, so that two
 checkouts can be compared on the same inputs in turns.
 
-- `voronoi`: the two Voronoi kernels at the launches of one 16-frame chunk
-  of `voronoi_calc`'s system (12,288 waters and a 6-atom solute, 12,294
+- `voronoi`: the Voronoi kernels at the launches of one 16-frame chunk of
+  `voronoi_calc`'s system (12,288 waters and a 6-atom solute, 12,294
   points): `voronoi_cellgrid_topk` at each tier's search launch (tier 1 and
   the escalation tiers, their arguments captured from
-  `voronoi_volumes_hybrid_frames(cell_impl="pallas")`), and
-  `voronoi_cells_fused` at that run's tier-1 launch (196,608 rows at (32,
-  64)) and at (40, 96) on a 2,048-row subset.
+  `voronoi_volumes_hybrid_frames(cell_impl="pallas")`), `voronoi_cells_fused`
+  at that run's tier-1 launch (196,608 rows at (32, 64)) and at (40, 96) on
+  a 2,048-row subset, and `voronoi_window_topk` at (a) that run's last-tier
+  full scan (64 rows a frame x 49,176 candidates, k 256) and at the three
+  launches of the same call on 2,048 waters x 16 frames (seed 5, no
+  solute): (b) tier 1 on the z-window form, (c) and (d) the (48, 96) and
+  (64, 128) full scans; then at (a) and (d) cut to their first 1, 2, 4 and
+  8 frames (64 to 512 rows: the last tier of a call with `chunk_frames`
+  below 16, or of its trailing partial chunk).
 - `hbond`: `hbond_dense` at the water-water launch of `hb_calc` on 4096
   waters and a 6-atom solute x 1024 frames, and `hbond_slab` at the launch
   of `hb_calc` on 16,384 waters x 64 frames.
@@ -24,10 +30,12 @@ checkouts can be compared on the same inputs in turns.
   waters x 64 frames whose oxygens sit on chip_smoke.py's `_split_traj`
   lattice (the split tier), and at `lsi_certified`'s launch on one frame
   of 131,072 atoms of that lattice.
-For these two the driver's kernel stage (the stage clock of
-`orderparams.stage_times`, 3 warm calls) is recorded too.
+For `qtet` and `lsi_split` the driver's kernel stage (the stage clock of
+`orderparams.stage_times`, 3 warm calls) is recorded too, and for
+`voronoi` the 16-frame chunk's `escalation (128, 256)` stage.
 
-Every launch is first compared with its plain version, exactly (the H-bond,
+Every launch is first compared with its plain version, exactly (the window
+search's in full, the H-bond,
 LSI and q launches on their first frames, the 131k and 1M launches on
 their first and last row tiles). Prints one JSON line: the label,
 the card, and per launch the shape and the kernel's ms (CUDA events, warm,
@@ -43,8 +51,12 @@ this file once for each, in turns, within one call:
 (then new and old again); `--kernels hbond,lsi` picks the groups.
 `--mappings` also times each cell-grid mapping (direct, and grouped at 8 to
 64 rows a block) and each cell-kernel block size, where the checkout has
-them, and each block shape of `hbond.cu` (acceptors a thread, kAcc 2, 4,
-8 and 16), of `lsi_window.cu` (the K = 24 kernel's rows a warp,
+them, the window search at each number of warps a row its checkout
+compiles (`WINDOW_SPLITS`; 1, 2, 4 and 8 where it has no such list) and,
+at (a)-(d), with its nearest-first scan and stop cut out of the source
+(NO_STOP: each window in z order from its start, every chunk offered), and
+each block shape of `hbond.cu` (acceptors a thread, kAcc 2, 4, 8 and 16),
+of `lsi_window.cu` (the K = 24 kernel's rows a warp,
 kRowsPerWarp 1, 2, 4 and 8; the split kernel's rows a block, kRowsS 32, 64
 and 128) and of `qtet_window.cu` (the row form's rows a block, kRows 32, 64
 and 128; the lane form's rows a warp, kLaneRows 2, 4 and 8; kRowFormMin 0
@@ -77,6 +89,11 @@ SHAPES = {"hbond": ("hbond", "constexpr int kAcc = {};", (2, 4, 8, 16)),
           "qtet_lane": ("qtet_window", "constexpr int kLaneRows = {};", (2, 4, 8)),
           "qtet_form": ("qtet_window", "constexpr long long kRowFormMin = {};",
                         ("0", "65536", "1LL << 60"))}
+# the window kernel's nearest-first scan and exact stop, cut out: each row
+# scans its window from its start, and no side stops
+NO_STOP = (("const int c = z_place(ext, s, e, cz);", "const int c = s;"),
+           ("if (__shfl_sync(kFull, __float_as_uint(dz2), 0) > (unsigned)(bound >> 32))",
+            "if (false)"))
 # the serial q kernel's 4-slot ladder, from its first test to its last slot
 LADDER = ("      if (!(dsq < d3)) continue;\n",
           "        d3 = dsq; x3 = dx; y3 = dy; z3 = dz;\n      }\n")
@@ -144,8 +161,8 @@ def _voronoi(a, build, record):
     pos, box = traj.positions[:, heavy], traj.boxes[:, 0].astype(np.float64)
 
     # the launches of one chunk, their arguments captured
-    seen = {"cellgrid": [], "cells": []}
-    ck, kk = vt.voronoi_cellgrid_topk, vc.voronoi_cells_fused
+    seen = {"cellgrid": [], "cells": [], "window": []}
+    ck, kk, wk = vt.voronoi_cellgrid_topk, vc.voronoi_cells_fused, vt.voronoi_window_topk
 
     def cap_ck(*args):
         seen["cellgrid"].append(args)
@@ -155,13 +172,21 @@ def _voronoi(a, build, record):
         seen["cells"].append((args, kw))
         return kk(*args, **kw)
 
+    def cap_wk(*args):
+        seen["window"].append(args)
+        return wk(*args)
+
     # each wrapper counts its launches on the module's name for it
-    cap_ck.launches = cap_kk.launches = 0
-    vt.voronoi_cellgrid_topk, vc.voronoi_cells_fused = cap_ck, cap_kk
+    cap_ck.launches = cap_kk.launches = cap_wk.launches = 0
+    vt.voronoi_cellgrid_topk, vt.voronoi_window_topk = cap_ck, cap_wk
+    vc.voronoi_cells_fused = cap_kk
     try:
         vd.voronoi_volumes_hybrid_frames(pos, box, 12288, cell_impl="pallas", device="cuda")
     finally:
-        vt.voronoi_cellgrid_topk, vc.voronoi_cells_fused = ck, kk
+        vt.voronoi_cellgrid_topk, vt.voronoi_window_topk, vc.voronoi_cells_fused = ck, wk, kk
+    record("voronoi_volumes_hybrid_frames escalation (128, 256) stage", ms=_stage_ms(
+        lambda: vd.voronoi_volumes_hybrid_frames(pos, box, 12288, cell_impl="pallas",
+                                                 device="cuda"), stage="escalation (128, 256)"))
     for n, args in enumerate(seen["cellgrid"]):
         centers, _, _, tbl_idx, n_side, k = args
         got, want = ck(*args), vt.voronoi_cellgrid_topk_plain(*args)
@@ -217,6 +242,73 @@ def _voronoi(a, build, record):
         if a.profile:
             v["profile"] = _profile(f"{a.label} {name}", kk, args, kw)
         record(name, **v)
+    del seen["cellgrid"], seen["cells"]
+    torch.cuda.empty_cache()
+    top, traj = make_water_box(2048, n_frames=16, seed=5)
+    heavy = np.concatenate([top.get_wat_inds("WAT")[0], top.get_sol_inds("WAT")[0]])
+    small = _captured(vt, "voronoi_window_topk", lambda: vd.voronoi_volumes_hybrid_frames(
+        traj.positions[:, heavy], traj.boxes[:, 0].astype(np.float64), 2048, device="cuda"))
+    launches = dict(zip("abcd", seen["window"] + small))
+    for tag in "ad":
+        for nf in (1, 2, 4, 8):
+            launches[f"{tag}, first {nf} frames"] = _first(launches[tag], nf)
+    no_stop = None
+    if a.mappings:
+        with tempfile.TemporaryDirectory() as tmp:  # a loaded library outlives its file
+            no_stop = _swapped(build, "voronoi_topk", NO_STOP, tmp)
+    for tag, args in launches.items():
+        cs, exts, _, k, _, win = args
+        want = vt.voronoi_window_topk_plain(*args)
+        v = {"shape": f"{cs.shape[0]} frames x {cs.shape[1]} rows x win {win} of "
+                      f"{exts.shape[1]}, k {k}",
+             "equal": _same(wk(*args), want), "ms": _ms(wk, args, a.iters)}
+        if a.mappings and hasattr(vt, "_window_split"):
+            pick = vt._window_split
+            try:
+                for split in getattr(vt, "WINDOW_SPLITS", (1, 2, 4, 8)):
+                    vt._window_split = lambda _, s=split: s
+                    v[f"split {split} equal"] = _same(wk(*args), want)
+                    v[f"split {split} ms"] = _ms(wk, args, a.iters)
+            finally:
+                vt._window_split = pick
+        if no_stop is not None and len(tag) == 1:
+            real = build._LOADED["voronoi_topk"]
+            build._LOADED["voronoi_topk"] = no_stop
+            try:
+                v["no stop equal"] = _same(wk(*args), want)
+                v["no stop ms"] = _ms(wk, args, a.iters)
+            finally:
+                build._LOADED["voronoi_topk"] = real
+        if a.profile:
+            v["profile"] = _profile(f"{a.label} window launch ({tag})", wk, args)
+        record(f"window launch ({tag})", **v)
+        del want
+
+
+def _same(got, want):
+    import torch
+
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _swapped(build, source, swaps, tmp):
+    """csrc/<source>.cu built in the directory `tmp` with each (old, new)
+    of `swaps` replaced (the checkout's flags), loaded; None where the
+    source lacks one of them."""
+    text = (build.CSRC / f"{source}.cu").read_text()
+    if not all(old in text for old, _ in swaps):
+        return None
+    for old, new in swaps:
+        text = text.replace(old, new)
+    for h in build.CSRC.glob("*.cuh"):
+        shutil.copy(h, tmp)
+    src, out = (os.path.join(tmp, f"{name}{source}_swapped{ext}")
+                for name, ext in (("", ".cu"), ("lib", ".so")))
+    with open(src, "w") as f:
+        f.write(text)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", out, src], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(out)
 
 
 def _variants(build, source, line, values, tmp):
@@ -381,16 +473,16 @@ def _ladder_cut_ms(build, fn, args, a):
             build._LOADED["qtet_window"] = real
 
 
-def _stage_ms(drive, calls=3):
-    """The driver's "kernel stage" on its own stage clock, ms, in each of
+def _stage_ms(drive, calls=3, stage="kernel stage"):
+    """The driver's step `stage` on its own stage clock, ms, in each of
     `calls` warm calls."""
-    from waterorderlib_tpu_torch.drivers import orderparams
+    from waterorderlib_tpu_torch.core.clock import stage_times
 
     out = []
     for _ in range(calls):
-        with orderparams.stage_times() as t:
+        with stage_times() as t:
             drive()
-        out.append(t["kernel stage"])
+        out.append(t[stage])
     return out
 
 

@@ -34,18 +34,39 @@
 // candidate id. The table is read as it is, not expanded 27-fold as the
 // TPU's lane layout needed.
 //
-// The z-window form (unchanged since it was ported). What bounds it on this
-// card: instructions, not bytes. The distance is 9 float32 operations per
-// (row, lane); the selection is a ballot per 32 lanes, and for each lane
-// that beats the current k-th distance an insertion into the row's sorted
-// list (a ballot per 32 entries to find its place, a shift of the entries
-// behind it). Most lanes fail the k-th distance once the list is full, so
-// the insertions are some k (1 + ln(lanes / k)) a row. Launch: one warp per
-// row, kWarps rows per block; each row's list, up to kMaxK (dsq, payload)
-// pairs, in shared memory; it stages kTile candidates of the block's window
-// in shared memory once for its rows (a block's rows lie in one row block,
-// so they share one window). Frames are the slowest grid dimension: a frame
-// batch is one launch.
+// The z-window form. What bounds it on this card: the selection's
+// instructions and the latency of its loads, not bytes (a frame's
+// candidates, 590 KB at 12,294 points, stay in L2). The distance is 9
+// float32 operations a (row, lane). The design:
+// - Nearest first, with an exact stop. Each row finds its place c in its
+//   window (the first candidate whose z is >= the row's, a binary search)
+//   and scans outward on both sides, 32 candidates a step. Along a side
+//   |fl(cz - z)| does not decrease (the z are sorted and lie on one side of
+//   cz; rounding is monotone), and dsq = fl(fl(a + b) + fl(dz*dz)) with a,
+//   b >= 0 is >= fl(dz*dz). So a side stops at the first candidate whose
+//   fl(dz*dz) is strictly above the row's k-th dsq so far: nothing beyond it
+//   can enter (one at exactly the k-th dsq and a lower position still can,
+//   hence strict). Parked +inf slots sort last and stop their side. A row
+//   then tests the candidates within about its k-th distance of it in z,
+//   not its whole window.
+// - No serial insertion: keys (dsq's bits << 32 | the sorted position) go
+//   into WarpSelect (warp_select.cuh), whose k smallest keys do not depend
+//   on the order in which they are offered; equal distances keep position
+//   order.
+// - Launches with few rows (the last tier's full scans: 64 rows a frame x
+//   1-16 frames) give a row `split` warps (the wrapper's `_window_split`):
+//   warp w of a row takes chunks w, w + split, ... of each side with a
+//   WarpSelect of its own (offer returns whether it merged). After each
+//   merge it publishes its list's entry ceil(k / split) - 1 in shared
+//   memory; the largest published entry has at least k keys of the row at
+//   or below it, so it bounds the row's k-th key and every warp of the row
+//   filters and stops by it. At the end the row's first warp merges the
+//   others' lists into its own.
+// - Blocks of kWarps warps, kWarps / split rows of one row block; frames are
+//   the slowest grid dimension: a frame batch is one launch. The candidates
+//   are read through L1 and L2, not staged in shared memory: a block's rows
+//   are adjacent in z, so their outward ranges overlap, and at tier 1 a
+//   frame's candidates (64.5 KB at 2,048 waters) fit in L1 whole.
 //
 // The cell-grid form. What bounds it on this card: the selection's
 // instructions. The lanes cost 9 float32 operations each (~650 filled
@@ -81,118 +102,162 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxK = 256;
-constexpr int kTile = 256;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
-// Offer the warp's 32 lanes, in lane order, to the row's sorted list
-// (ld, lp) of cnt <= k entries. `real`: the lane holds a candidate.
-__device__ void offer(float* ld, int* lp, int& cnt, int k, float d, int p, bool real) {
-  const int lane = threadIdx.x & 31;
-  const float thr = cnt == k ? ld[k - 1] : inf_f();
-  unsigned m = __ballot_sync(kFull, real && d > 0.f && d < thr);
-  while (m) {
-    const int src = __ffs(m) - 1;
-    m &= m - 1;
-    const float dn = __shfl_sync(kFull, d, src);
-    const int pn = __shfl_sync(kFull, p, src);
-    if (cnt == k && !(dn < ld[k - 1])) continue;  // an earlier lane of this step raised the bar
-    // its place: after every entry <= dn (earlier lanes win ties)
-    int at = 0;
-    for (int c = 0; c < cnt; c += 32) {
-      const int j = c + lane;
-      const unsigned b = __ballot_sync(kFull, j < cnt && ld[j] <= dn);
-      at += __popc(b);
-      if (b != kFull) break;
-    }
-    // entries [at, top) move up by one; the k-th falls off a full list
-    const int top = min(cnt + 1, k) - 1;
-    for (int c = (top - 1) & ~31; top > at && c >= (at & ~31); c -= 32) {
-      const int j = c + lane;
-      const bool mv = j >= at && j < top;
-      float vd = 0.f;
-      int vp = 0;
-      if (mv) {
-        vd = ld[j];
-        vp = lp[j];
-      }
-      __syncwarp();
-      if (mv) {
-        ld[j + 1] = vd;
-        lp[j + 1] = vp;
-      }
-      __syncwarp();
-    }
-    if (lane == 0) {
-      ld[at] = dn;
-      lp[at] = pn;
-    }
-    __syncwarp();
-    cnt = top + 1;
+// --- the z-window form ---------------------------------------------------------
+
+// the first position in [lo, hi) whose z is >= cz (hi if none), the same in every lane
+__device__ __forceinline__ int z_place(const float* ext, int lo, int hi, float cz) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ext[3 * mid + 2] < cz)
+      lo = mid + 1;
+    else
+      hi = mid;
   }
+  return lo;
 }
 
-__device__ void emit(const float* ld, const int* lp, int cnt, int k, float* dist, int* pay) {
-  for (int j = threadIdx.x & 31; j < k; j += 32) {
-    dist[j] = j < cnt ? sqrtf(ld[j]) : inf_f();
-    pay[j] = j < cnt ? lp[j] : -1;
-  }
+// entry i of a WarpSelect's list, in every lane
+template <int R>
+__device__ __forceinline__ u64 list_entry(const WarpSelect<R>& ws, int i) {
+  u64 t = ws.L[0];
+#pragma unroll
+  for (int r = 1; r < R; ++r)
+    if (r == (i >> 5)) t = ws.L[r];
+  return __shfl_sync(kFull, t, i & 31);
+}
+
+// One side's chunk of 32 candidates, lane j = j0 + dir * lane, j in [s, e):
+// offered unless the chunk's nearest candidate (lane 0) lies beyond the bound
+// in z alone. Returns false when the side stops there.
+template <int R>
+__device__ __forceinline__ bool scan_chunk(WarpSelect<R>& ws, bool& merged, float cx, float cy,
+                                           float cz, float x, float y, float z, bool in, int j,
+                                           u64 bound) {
+  const float dz = cz - z, dz2 = dz * dz;
+  if (__shfl_sync(kFull, __float_as_uint(dz2), 0) > (unsigned)(bound >> 32))
+    return false;
+  const float dx = cx - x, dy = cy - y;
+  const float d = (dx * dx + dy * dy) + dz2;
+  const u64 key = ((u64)__float_as_uint(d) << 32) | (unsigned)j;
+  merged |= ws.offer(in && d > 0.f && d < inf_f() && key < bound, key);
+  return true;
 }
 
 // centers (F, n_rows, 3) z-sorted rows, n_rows = n_blocks * row_block;
 // exts (F, p4, 3) z-sorted candidates; starts (F, n_blocks) in [0, p4 - win].
+// S warps a row; `tested` (or null) gains the lanes offered.
+template <int R, int S>
 __global__ void __launch_bounds__(kThreads)
 window_topk_kernel(const float* __restrict__ centers, int n_rows, int row_block,
                    const float* __restrict__ exts, int p4, const int* __restrict__ starts,
-                   int n_blocks, int win, int k, float* __restrict__ dist,
-                   int* __restrict__ pos) {
-  __shared__ float sx[kTile], sy[kTile], sz[kTile];
-  __shared__ float s_d[kWarps][kMaxK];
-  __shared__ int s_p[kWarps][kMaxK];
+                   int n_blocks, int win, int k, float* __restrict__ dist, int* __restrict__ pos,
+                   unsigned long long* __restrict__ tested) {
+  constexpr int kRows = kWarps / S;  // rows a block
+  __shared__ u64 s_buf[kWarps][kBuf];
+  __shared__ u64 s_list[S > 1 ? kWarps : 1][32 * R];  // the lists of a row's other warps
+  __shared__ volatile u64 s_pub[kWarps];               // each warp's published entry
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_sub = (row_block + kWarps - 1) / kWarps;
+  const int g = warp / S, w = warp % S;
+  const int n_sub = (row_block + kRows - 1) / kRows;
   const int sub = blockIdx.x % n_sub;
   const int rest = blockIdx.x / n_sub;
   const int blk = rest % n_blocks, f = rest / n_blocks;
-  const int in_blk = sub * kWarps + warp;
-  const bool active = in_blk < row_block;  // uniform in the warp
+  const int in_blk = sub * kRows + g;
+  const bool active = in_blk < row_block;  // uniform in the row's warps
   const long long row = (long long)f * n_rows + (long long)blk * row_block + in_blk;
-  const int start = starts[f * n_blocks + blk];
+  const int s = starts[f * n_blocks + blk], e = s + win;
   const float* ext = exts + (long long)f * p4 * 3;
-  float cx = 0.f, cy = 0.f, cz = 0.f;
+  if (S > 1) {
+    if (lane == 0) s_pub[warp] = kSent;
+    __syncthreads();
+  }
+  WarpSelect<R> ws;
+  ws.init(s_buf[warp], k);
+  unsigned long long n_tested = 0;
   if (active) {
-    cx = centers[3 * row];
-    cy = centers[3 * row + 1];
-    cz = centers[3 * row + 2];
-  }
-  float* ld = s_d[warp];
-  int* lp = s_p[warp];
-  int cnt = 0;
-
-  for (int t0 = 0; t0 < win; t0 += kTile) {
-    const int nt = min(kTile, win - t0);
-    __syncthreads();
-    for (int t = threadIdx.x; t < nt; t += kThreads) {
-      const float* e = ext + 3LL * (start + t0 + t);
-      sx[t] = e[0];
-      sy[t] = e[1];
-      sz[t] = e[2];
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j0 = 0; j0 < nt; j0 += 32) {
-      const int j = j0 + lane;
-      const bool real = j < nt;
-      float d = 0.f;
-      if (real) {
-        const float dx = cx - sx[j], dy = cy - sy[j], dz = cz - sz[j];
-        d = (dx * dx + dy * dy) + dz * dz;
+    const float cx = centers[3 * row], cy = centers[3 * row + 1], cz = centers[3 * row + 2];
+    const int c = z_place(ext, s, e, cz);
+    const int at = (k + S - 1) / S - 1;  // the entry each warp publishes
+    int jr = c + 32 * w, jl = c - 1 - 32 * w;  // each side's next chunk (its nearest candidate)
+    while (jr < e || jl >= s) {
+      u64 bound = ws.thr;
+      if (S > 1) {
+        u64 m = s_pub[g * S];
+#pragma unroll
+        for (int v = 1; v < S; ++v) m = umax64(m, s_pub[g * S + v]);
+        bound = umin64(bound, m);
       }
-      offer(ld, lp, cnt, k, d, start + t0 + j, real);
+      // both sides' loads first, so that both are in flight
+      const int j_r = jr + lane, j_l = jl - lane;
+      const bool in_r = j_r < e, in_l = j_l >= s;
+      float xr = 0.f, yr = 0.f, zr = 0.f, xl = 0.f, yl = 0.f, zl = 0.f;
+      if (in_r) {
+        xr = ext[3LL * j_r];
+        yr = ext[3LL * j_r + 1];
+        zr = ext[3LL * j_r + 2];
+      }
+      if (in_l) {
+        xl = ext[3LL * j_l];
+        yl = ext[3LL * j_l + 1];
+        zl = ext[3LL * j_l + 2];
+      }
+      bool merged = false;
+      if (jr < e) {
+        if (scan_chunk(ws, merged, cx, cy, cz, xr, yr, zr, in_r, j_r, bound)) {
+          n_tested += min(32, e - jr);
+          jr += 32 * S;
+        } else {
+          jr = e;
+        }
+      }
+      if (jl >= s) {
+        if (scan_chunk(ws, merged, cx, cy, cz, xl, yl, zl, in_l, j_l, bound)) {
+          n_tested += min(32, jl - s + 1);
+          jl -= 32 * S;
+        } else {
+          jl = s - 1;
+        }
+      }
+      if (S > 1 && merged) {
+        const u64 p = list_entry(ws, at);
+        if (lane == 0) s_pub[warp] = p;
+      }
     }
   }
-  if (active) emit(ld, lp, cnt, k, dist + row * k, pos + row * k);
+  ws.flush();
+  if (S > 1) {
+    if (w != 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) s_list[warp][r * 32 + lane] = ws.L[r];
+    }
+    __syncthreads();
+    if (w == 0 && active) {
+      for (int v = 1; v < S; ++v) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const u64 key = s_list[warp + v][r * 32 + lane];
+          ws.offer(key != kSent, key);
+        }
+      }
+      ws.flush();
+    }
+  }
+  if (w == 0 && active) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = r * 32 + lane;
+      if (j < k) {
+        const bool ok = ws.L[r] != kSent;
+        dist[row * k + j] = ok ? sqrtf(__uint_as_float((unsigned)(ws.L[r] >> 32))) : inf_f();
+        pos[row * k + j] = ok ? (int)(unsigned)(ws.L[r] & 0xffffffffu) : -1;
+      }
+    }
+  }
+  if (tested != nullptr && lane == 0 && n_tested > 0) atomicAdd(tested, n_tested);
 }
 
 // --- the cell-grid form (its selection: WarpSelect, warp_select.cuh) ---------
@@ -409,21 +474,63 @@ int launch_cellgrid(const float* centers, const int* cid, int n_rows, const floa
   return (int)cudaGetLastError();
 }
 
+template <int R, int S>
+int launch_window_s(const float* centers, int n_rows, int row_block, const float* exts, int p4,
+                    const int* starts, int n_blocks, int win, int k, int n_frames,
+                    unsigned long long* tested, float* dist, int* pos, cudaStream_t stream) {
+  const long long n_sub = (row_block + kWarps / S - 1) / (kWarps / S);
+  const long long grid = n_sub * n_blocks * n_frames;
+  window_topk_kernel<R, S><<<(unsigned)grid, kThreads, 0, stream>>>(
+      centers, n_rows, row_block, exts, p4, starts, n_blocks, win, k, dist, pos, tested);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch_window(const float* centers, int n_rows, int row_block, const float* exts, int p4,
+                  const int* starts, int n_blocks, int win, int k, int n_frames, int split,
+                  unsigned long long* tested, float* dist, int* pos, cudaStream_t stream) {
+  switch (split) {
+    case 1:
+      return launch_window_s<R, 1>(centers, n_rows, row_block, exts, p4, starts, n_blocks, win, k,
+                                   n_frames, tested, dist, pos, stream);
+    case 2:
+      return launch_window_s<R, 2>(centers, n_rows, row_block, exts, p4, starts, n_blocks, win, k,
+                                   n_frames, tested, dist, pos, stream);
+    case 4:
+      return launch_window_s<R, 4>(centers, n_rows, row_block, exts, p4, starts, n_blocks, win, k,
+                                   n_frames, tested, dist, pos, stream);
+    default:
+      return launch_window_s<R, 8>(centers, n_rows, row_block, exts, p4, starts, n_blocks, win, k,
+                                   n_frames, tested, dist, pos, stream);
+  }
+}
+
 }  // namespace
 
 // The z-window form: every row of block b of frame f against the win
-// candidates of exts[f] from starts[f, b] on. pos: sorted positions.
+// candidates of exts[f] from starts[f, b] on, `split` (1, 2, 4 or 8) warps a
+// row. pos: sorted positions. `tested` (or null): gains the lanes offered.
 extern "C" int voronoi_window_topk_launch(const float* centers, int n_rows, int row_block,
                                           const float* exts, int p4, const int* starts,
-                                          int n_blocks, int win, int k, int n_frames,
-                                          float* dist, int* pos, void* stream) {
-  if (k < 1 || k > kMaxK || row_block < 1 || win < 1 || win > p4) return (int)cudaErrorInvalidValue;
+                                          int n_blocks, int win, int k, int n_frames, int split,
+                                          unsigned long long* tested, float* dist, int* pos,
+                                          void* stream) {
+  if (k < 1 || k > kMaxK || row_block < 1 || win < 1 || win > p4 ||
+      (split != 1 && split != 2 && split != 4 && split != 8))
+    return (int)cudaErrorInvalidValue;
   if (n_frames == 0 || n_blocks == 0) return 0;
-  const long long n_sub = (row_block + kWarps - 1) / kWarps;
-  const long long grid = n_sub * n_blocks * n_frames;
-  window_topk_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      centers, n_rows, row_block, exts, p4, starts, n_blocks, win, k, dist, pos);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (k <= 32)
+    return launch_window<1>(centers, n_rows, row_block, exts, p4, starts, n_blocks, win, k,
+                            n_frames, split, tested, dist, pos, st);
+  if (k <= 64)
+    return launch_window<2>(centers, n_rows, row_block, exts, p4, starts, n_blocks, win, k,
+                            n_frames, split, tested, dist, pos, st);
+  if (k <= 128)
+    return launch_window<4>(centers, n_rows, row_block, exts, p4, starts, n_blocks, win, k,
+                            n_frames, split, tested, dist, pos, st);
+  return launch_window<8>(centers, n_rows, row_block, exts, p4, starts, n_blocks, win, k,
+                          n_frames, split, tested, dist, pos, st);
 }
 
 // The cell-grid form: every row against the 27 cells around cid[f, row],

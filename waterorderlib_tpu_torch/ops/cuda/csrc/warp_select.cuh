@@ -85,23 +85,24 @@ struct WarpSelect {
     thr = __shfl_sync(kFull, t, (k - 1) & 31);
   }
 
-  // each lane's key, if `real`: into the buffer when below thr
-  __device__ __forceinline__ void offer(bool real, u64 key) {
+  // each lane's key, if `real`: into the buffer when below thr; true (in
+  // every lane) if the buffer reached 32 keys and was merged into L
+  __device__ __forceinline__ bool offer(bool real, u64 key) {
     const int lane = threadIdx.x & 31;
     const bool s = real && key < thr;
     const unsigned m = __ballot_sync(kFull, s);
-    if (m == 0) return;
+    if (m == 0) return false;
     if (s) buf[cnt + __popc(m & ((1u << lane) - 1u))] = key;
     cnt += __popc(m);
-    if (cnt >= 32) {
-      __syncwarp();
-      const u64 v = buf[lane];
-      const u64 w = buf[32 + lane];
-      __syncwarp();
-      if (lane < cnt - 32) buf[lane] = w;
-      cnt -= 32;
-      merge(v);
-    }
+    if (cnt < 32) return false;
+    __syncwarp();
+    const u64 v = buf[lane];
+    const u64 w = buf[32 + lane];
+    __syncwarp();
+    if (lane < cnt - 32) buf[lane] = w;
+    cnt -= 32;
+    merge(v);
+    return true;
   }
 
   __device__ __forceinline__ void flush() {

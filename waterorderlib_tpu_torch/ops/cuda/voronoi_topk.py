@@ -12,7 +12,11 @@ correctly rounded; empty slots hold +inf and payload -1.
 
 `voronoi_window_topk`: rows (F, R, 3) z-sorted in blocks of `row_block`;
 block b of frame f scans the `win` z-sorted candidates exts[f, starts[f, b]
-:][:win]; the payload is the position in the sorted candidate array.
+:][:win]; the payload is the position in the sorted candidate array. Its
+kernel scans each row's window outward from the row's own z, nearest
+first, and stops a side once the z distance alone exceeds the row's k-th
+distance; `_window_split` gives a row of a launch with few rows several
+warps.
 `voronoi_cellgrid_topk`: each row scans the 27 cells around its cell cid
 (dz, then dy, then dx in (-1, 0, 1)), each cell's `cap` table slots in
 order; the payload is the table's candidate id. Its kernel has two
@@ -41,6 +45,8 @@ MAX_K = 256  # kMaxK in csrc/voronoi_topk.cu: the row's list in shared memory
 PLAIN_BUDGET = 1 << 25  # (row, lane) distances per step of the plain versions
 GROUP_ROWS = 32  # sorted rows a block of the grouped cell-grid mapping takes
 GROUP_MIN = 16  # rows to an inner cell from which the grouped mapping is taken
+WINDOW_WARPS = 2048  # warps a window launch with few rows is given
+WINDOW_SPLITS = (1, 2, 4, 8)  # the warps a row the window kernel is compiled for
 SMEM_MAX = build.SMEM_MAX
 _WARPS, _BUF = 8, 64  # kWarps, kBuf in csrc/voronoi_topk.cu
 # the order in which the cell-grid kernel reads the 27 cells: the row's own
@@ -134,6 +140,23 @@ def _launch(entry, argtypes, args):
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
 
 
+def _window_split(n_rows: int) -> int:
+    """Warps a row of a window launch takes (WINDOW_SPLITS): one where the
+    launch has WINDOW_WARPS rows or more (tier 1: 32,768 rows at 2,048
+    waters x 16 frames), else the least that brings the launch to
+    WINDOW_WARPS warps, at most 8 (the last tier's full scans: 2 at a
+    16-frame chunk's 1,024 rows; 8 at one frame's 64). More warps a row
+    shorten its serial scan but test more lanes under a looser bound. On
+    the H100 (PERF.md) 1 a row won at 4,096 and 32,768 rows, and at k 256
+    2 won at 1,024 and 512 rows, 4 at 256, 8 at 128 and 64; the pick is
+    within 0.01 ms of the best at each."""
+    split = WINDOW_SPLITS[0]
+    for split in WINDOW_SPLITS:
+        if n_rows * split >= WINDOW_WARPS:
+            break
+    return split
+
+
 def grouped_smem(cap: int) -> int:
     """Shared memory of one block of the grouped cell-grid mapping: the
     warps' key buffers (8 bytes a key), the 27 cells' staged slots (x, y,
@@ -196,23 +219,31 @@ def _select(dsq, k):
     return dist, torch.where(ok, lane, torch.full_like(lane, -1)), ok
 
 
-def voronoi_window_topk(centers, exts, starts, k, row_block, win):
+def voronoi_window_topk(centers, exts, starts, k, row_block, win, tested=None):
     """The k nearest of each row's window: (dist (F, R, k), pos (F, R, k)
     int32 positions in the sorted candidates, -1 where empty). centers
     (F, R, 3) z-sorted rows, R a multiple of row_block; exts (F, P, 3)
-    z-sorted candidates; starts (F, R / row_block) int32 in [0, P - win]."""
+    z-sorted candidates; starts (F, R / row_block) int32 in [0, P - win].
+    `tested`: None, or (kernel only) an int64 (1,) tensor on the centers'
+    device to which the kernel adds the (row, lane) pairs it offered to its
+    selection."""
     _check_coords(centers.device.type == "cuda", centers=centers, exts=exts)
     _check_window(centers, exts, starts, k, row_block, win)
+    if tested is not None and (tested.device != centers.device or tested.dtype != torch.int64
+                               or tuple(tested.shape) != (1,)):
+        raise ValueError("tested must be an int64 (1,) tensor on the centers' device")
     if window.runs_plain(centers, "voronoi_window_topk"):
+        if tested is not None:
+            raise ValueError("tested counts the kernel's lanes; CPU tensors run the plain version")
         return voronoi_window_topk_plain(centers, exts, starts, k, row_block, win)
     F, R, _ = centers.shape
     dist = torch.empty((F, R, k), dtype=torch.float32, device=centers.device)
     pos = torch.empty((F, R, k), dtype=torch.int32, device=centers.device)
     _launch("voronoi_window_topk_launch",
             [_c_ptr, _c_int, _c_int, _c_ptr, _c_int, _c_ptr, _c_int, _c_int, _c_int, _c_int,
-             _c_ptr, _c_ptr],
+             _c_int, _c_ptr, _c_ptr, _c_ptr],
             (centers, R, row_block, exts, exts.shape[1], starts, R // row_block, win, k, F,
-             dist, pos))
+             _window_split(F * R), tested, dist, pos))
     voronoi_window_topk.launches += 1
     return dist, pos
 
