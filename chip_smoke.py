@@ -1684,7 +1684,7 @@ def _vor_cmp_mappings(label, args, errs):
 def _captured_vtopk(fn, *names):
     """Run fn; the arguments of every launch it made of each search wrapper
     `names` of ops/cuda/voronoi_topk.py, {name: [args, ...]} (each launch
-    runs as usual, and the wrappers' counts are left alone)."""
+    runs as usual and is counted by its wrapper)."""
     from waterorderlib_tpu_torch.ops.cuda import voronoi_topk as vtopk
 
     real = {name: getattr(vtopk, name) for name in names}
@@ -1695,7 +1695,6 @@ def _captured_vtopk(fn, *names):
             seen[name].append(args)
             return real[name](*args)
 
-        record.launches = 0  # the wrapper counts its launches on the module's name for it
         return record
 
     for name in names:

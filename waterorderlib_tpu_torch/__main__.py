@@ -9,6 +9,10 @@
     python -m waterorderlib_tpu_torch boundwrap sys.json sys.npz --cache bw.npz
     python -m waterorderlib_tpu_torch voronoi sys.json sys.npz --engine device
     python -m waterorderlib_tpu_torch contactarea sys.json sys.npz --engine device
+
+Every analysis subcommand takes `--trace-out PATH`: the call is recorded
+(`core.clock.stage_times`) and its spans and counters are written to PATH
+as a Chrome trace (`core.clock.export_chrome`).
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ def _add_common(p):
                         "(larger-than-memory support; 0 = load whole)")
     p.add_argument("--mesh", default="", help="device mesh, e.g. 4x2 (not ported yet)")
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    p.add_argument("--trace-out", default="",
+                   help="record the call and write its spans and counters to this path as a "
+                        "Chrome trace (Perfetto, chrome://tracing)")
 
 
 def main(argv=None):
@@ -79,7 +86,20 @@ def main(argv=None):
         print(f"wrote {args.out}.json and {args.out}.npz "
               f"({traj.n_frames} frames, {traj.n_atoms} atoms)")
         return 0
+    if not args.trace_out:
+        return _analyse(args)
 
+    from waterorderlib_tpu_torch.core import clock
+
+    with clock.stage_times():
+        rc = _analyse(args)
+    n = clock.export_chrome(args.trace_out)
+    print(f"wrote {n} spans to {args.trace_out}", file=sys.stderr)
+    return rc
+
+
+def _analyse(args) -> int:
+    """Run the analysis subcommand `args.cmd` and print its JSON line."""
     if args.cmd == "hb":
         from waterorderlib_tpu_torch.drivers.hbonds_driver import hb_calc
 

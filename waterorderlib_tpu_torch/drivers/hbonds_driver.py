@@ -23,8 +23,9 @@ import os
 import numpy as np
 import torch
 
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end
-from waterorderlib_tpu_torch.drivers.orderparams import _log_tier, _not_ported, _resolve_system
+from waterorderlib_tpu_torch.drivers.orderparams import _not_ported, _resolve_system
 from waterorderlib_tpu_torch.hbonds import clusters as clusters_mod
 from waterorderlib_tpu_torch.hbonds.bonds import general_hbonds
 from waterorderlib_tpu_torch.hbonds.populations import bound_wrap_masks
@@ -53,8 +54,8 @@ def _water_triplets(top, wat_res):
 
 def _to(positions, boxes, device):
     """Frames and boxes as float32 tensors on the device."""
-    return (torch.as_tensor(positions, dtype=torch.float32, device=device),
-            torch.as_tensor(boxes, dtype=torch.float32, device=device))
+    return (clock.to_device(positions, torch.float32, device),
+            clock.to_device(boxes, torch.float32, device))
 
 
 def _frame_blocks(n_frames, per_frame):
@@ -70,13 +71,14 @@ def hb_sets(top, wat_res, device):
     """Index tensors on `device` of hb_calc's (acceptor, donor, donor-H)
     triplets: (water, solute O or None, solute N or None), the number of
     cosolvent molecules, and whether the cosolvent takes part."""
-    _, wat_hb = _water_triplets(top, wat_res)
-    sol_inds, hb_o, hb_n = _sol_hb_triplets(top, wat_res)
-    n_sol = len(np.unique(top.res_ids[sol_inds])) if len(sol_inds) else 0
-    has_sol = n_sol > 0 and (len(hb_o[0]) + len(hb_n[0])) > 0
+    with clock.span("topology"):
+        _, wat_hb = _water_triplets(top, wat_res)
+        sol_inds, hb_o, hb_n = _sol_hb_triplets(top, wat_res)
+        n_sol = len(np.unique(top.res_ids[sol_inds])) if len(sol_inds) else 0
+        has_sol = n_sol > 0 and (len(hb_o[0]) + len(hb_n[0])) > 0
 
     def idx(triplet):
-        return [torch.as_tensor(np.asarray(a, np.int64), device=device) for a in triplet]
+        return [clock.to_device(np.asarray(a, np.int64), device=device) for a in triplet]
 
     return (idx(wat_hb), *((idx(hb_o), idx(hb_n)) if has_sol else (None, None))), n_sol, has_sol
 
@@ -130,7 +132,6 @@ def _hb_core(pos, boxes, sets, n_sol, dist_cut, ang_cut, n_bins):
     hist cosolvent) (n_bins,) int64, (water means, cosolvent means) (F,)
     float32)."""
     wat_tot, sol_tot = hb_totals(pos, boxes, sets, n_sol, dist_cut, ang_cut)
-    _log_tier("hb_calc", hbond.last_tier)
     stage_end("kernel stage")
     wat_tot, sol_tot = wat_tot.to(torch.float32), sol_tot.to(torch.float32)
     hists = tuple(
@@ -143,6 +144,7 @@ def _hb_core(pos, boxes, sets, n_sol, dist_cut, ang_cut, n_bins):
     return out
 
 
+@clock.traced("call:hb_calc")
 def hb_calc(
     top_file,
     traj_file,
@@ -204,6 +206,7 @@ def hb_calc(
 # getBoundWrap
 # ---------------------------------------------------------------------------
 
+@clock.traced("call:get_bound_wrap")
 def get_bound_wrap(
     top_file,
     traj,
@@ -223,15 +226,16 @@ def get_bound_wrap(
     """
     dev = resolve_device(device)
     top, traj = _resolve_system(top_file, traj, 1)
-    wat_inds, (_, _, wat_donh) = _water_triplets(top, wat_res)
-    sol_inds, (sol_acc_o, sol_don_o, sol_donh_o), _ = _sol_hb_triplets(top, wat_res)
+    with clock.span("topology"):
+        wat_inds, (_, _, wat_donh) = _water_triplets(top, wat_res)
+        sol_inds, (sol_acc_o, sol_don_o, sol_donh_o), _ = _sol_hb_triplets(top, wat_res)
     sel = slice(None) if frame_index is None else slice(frame_index, frame_index + 1)
     stage_end("host gather")
     pos, boxes = _to(traj.positions[sel], traj.boxes[sel], dev)
     stage_end("H2D")
 
     def at(inds):
-        return pos[:, torch.as_tensor(np.asarray(inds, np.int64), device=dev)]
+        return pos[:, clock.to_device(np.asarray(inds, np.int64), device=dev)]
 
     bw = bound_wrap_masks(at(wat_inds), at(wat_donh), at(sol_inds), at(sol_acc_o),
                           at(sol_don_o), at(sol_donh_o), boxes, cutoff, hb_dist, hb_ang)
@@ -273,6 +277,7 @@ def _stats_tail(output_dir, dist, series, seed):
     return out
 
 
+@clock.traced("call:get_hb_cluster_stats")
 def get_hb_cluster_stats(
     top_file,
     traj_file,
@@ -299,12 +304,13 @@ def get_hb_cluster_stats(
     top, traj = _resolve_system(top_file, traj_file, stride)
     acceptor_inds, donor_inds, donor_h_inds = (np.asarray(a, int) for a in
                                                (acceptor_inds, donor_inds, donor_h_inds))
-    acc_res, don_res = top.res_ids[acceptor_inds], top.res_ids[donor_inds]
-    res_ids = np.unique(np.concatenate([acc_res, don_res]))
-    n_res = int(res_ids.max()) + 1 if len(res_ids) else 0
-    flat = torch.as_tensor((acc_res[:, None].astype(np.int64) * n_res + don_res[None, :])
+    with clock.span("topology"):
+        acc_res, don_res = top.res_ids[acceptor_inds], top.res_ids[donor_inds]
+        res_ids = np.unique(np.concatenate([acc_res, don_res]))
+        n_res = int(res_ids.max()) + 1 if len(res_ids) else 0
+    flat = clock.to_device((acc_res[:, None].astype(np.int64) * n_res + don_res[None, :])
                            .reshape(-1), device=dev)
-    inds = [torch.as_tensor(a, device=dev) for a in (acceptor_inds, donor_inds, donor_h_inds)]
+    inds = [clock.to_device(a, device=dev) for a in (acceptor_inds, donor_inds, donor_h_inds)]
     stage_end("host gather")
     pos, boxes = _to(traj.positions, traj.boxes, dev)
     stage_end("H2D")
@@ -333,6 +339,7 @@ def _contacts(pos, boxes, cutoff):
     return pairs.neighbor_mask(pos, pos, boxes[:, None, None, :], 0.0, cutoff)
 
 
+@clock.traced("call:get_ion_cluster_stats")
 def get_ion_cluster_stats(
     top_file,
     traj_file,
@@ -352,7 +359,7 @@ def get_ion_cluster_stats(
     top, traj = _resolve_system(top_file, traj_file, stride)
     ion_inds = np.asarray(ion_inds, int)
     n = len(ion_inds)
-    q = torch.as_tensor(np.asarray(charges, np.float32), device=dev)
+    q = clock.to_device(np.asarray(charges, np.float32), device=dev)
     stage_end("host gather")
     pos, boxes = _to(traj.positions[:, ion_inds, :], traj.boxes, dev)
     stage_end("H2D")
@@ -378,6 +385,7 @@ def get_ion_cluster_stats(
     return out[0], out[1]
 
 
+@clock.traced("call:get_neighbor_stats")
 def get_neighbor_stats(
     top_file,
     traj_file,
@@ -396,7 +404,7 @@ def get_neighbor_stats(
     dev = resolve_device(device)
     top, traj = _resolve_system(top_file, traj_file, stride)
     atom_inds = np.asarray(atom_inds, int)
-    mol = torch.as_tensor(np.asarray(mol_ids, np.int64), device=dev)
+    mol = clock.to_device(np.asarray(mol_ids, np.int64), device=dev)
     n_mol = int(np.max(mol_ids)) + 1
     n_bins = 20
     stage_end("host gather")

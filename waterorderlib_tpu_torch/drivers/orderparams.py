@@ -23,6 +23,7 @@ from time import monotonic
 import numpy as np
 import torch
 
+from waterorderlib_tpu_torch.core import clock
 # stage_times is re-exported: callers time the drivers as orderparams.stage_times()
 from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end, stage_times  # noqa: F401
 from waterorderlib_tpu_torch.io.streaming import iter_chunks
@@ -36,11 +37,6 @@ from waterorderlib_tpu_torch.ops.cuda import qtet2
 from waterorderlib_tpu_torch.order import angles as angles_mod
 from waterorderlib_tpu_torch.stats import blocks
 from waterorderlib_tpu_torch.utils import logging as _logging_mod
-
-
-def _log_tier(driver: str, tier: str) -> None:
-    """Record (once per driver+tier) which kernel tier served a driver call."""
-    _logging_mod.log_once((driver, tier), "%s: serving tier=%s", driver, tier)
 
 
 def _not_ported(mesh, max_neighbors=None, k=None, driver=""):
@@ -114,7 +110,7 @@ def _masks_tensor(sub_inds, n_frames, n_pops, row_map, nw, device) -> torch.Tens
     """(F, P+1, Nw) bool: slot 0 is every water, then the populations."""
     pops = pop_masks_from_subinds(sub_inds, n_frames, n_pops, row_map, nw)
     all_mask = np.ones((n_frames, 1, nw), dtype=bool)
-    return torch.as_tensor(np.concatenate([all_mask, pops], axis=1), device=device)
+    return clock.to_device(np.concatenate([all_mask, pops], axis=1), device=device)
 
 
 def _centers(top, wat_res, center_select):
@@ -134,11 +130,13 @@ def _as_numpy(out):
 def _frames_in(positions, boxes, inds, sub_inds, n_pops, row_map, device):
     """Center rows (F, Nc, 3), boxes (F, 3) and population masks of a frame
     batch on the device."""
-    pos_np = positions[:, inds, :]
+    with clock.span("gather"):
+        pos_np = positions[:, inds, :]
+        clock.count("gather_bytes", pos_np.nbytes)
     stage_end("host gather")
     # trajectories may hold float64 frames; the kernels take float32
-    pos = torch.as_tensor(pos_np, dtype=torch.float32, device=device)
-    boxes_t = torch.as_tensor(boxes, dtype=torch.float32, device=device)
+    pos = clock.to_device(pos_np, torch.float32, device)
+    boxes_t = clock.to_device(boxes, torch.float32, device)
     stage_end("H2D")
     masks = _masks_tensor(sub_inds, pos.shape[0], n_pops, row_map, len(inds), device)
     stage_end("masks (host + H2D)")
@@ -157,10 +155,11 @@ def _run_whole(top_file, traj_file, sub_inds, n_pops, wat_res, stride, core, dev
     """Run `core(center_pos, boxes, masks)` over the whole trajectory at once;
     returns its (carry, stats) as numpy."""
     top, traj = _resolve_system(top_file, traj_file, stride)
-    inds = _centers(top, wat_res, center_select)
-    frames = _frames_in(traj.positions, traj.boxes, inds, sub_inds, n_pops,
-                        _row_of_atom(inds, top.n_atoms), device)
-    return _run_core(core, *frames)
+    with clock.span("topology"):
+        inds = _centers(top, wat_res, center_select)
+        row_map = _row_of_atom(inds, top.n_atoms)
+    return _run_core(core, *_frames_in(traj.positions, traj.boxes, inds, sub_inds, n_pops,
+                                       row_map, device))
 
 
 def _masked_value_pop_stats(values, masks, n_bins, lo, hi, valid=None):
@@ -185,13 +184,13 @@ def _tet_core(wat_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi):
     """q + population statistics for one frame batch: returns
     (hist (P+1, n_bins), (means (F, P+1), vars (F, P+1)))."""
     q_all = qtet2.order_param_q_certified(wat_pos, boxes, low_cut, high_cut)
-    _log_tier("tet_order_calc", qtet2.last_tier)
     stage_end("kernel stage")
     out = _masked_value_pop_stats(q_all, masks, n_bins, lo, hi)
     stage_end("stats (device)")
     return out
 
 
+@clock.traced("call:tet_order_calc")
 def tet_order_calc(
     top_file,
     traj_file,
@@ -280,13 +279,13 @@ def _three_body_stats(ang, cnt, masks, n_bins, lo, hi, n2x):
 def _three_body_core(wat_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi, n2x):
     """3-body angles + metrics for one frame batch (see _three_body_stats)."""
     ang, cnt = angles_kernel.neighbor_pair_angles_certified(wat_pos, boxes, low_cut, high_cut)
-    _log_tier("three_body_calc", angles_kernel.last_tier)
     stage_end("kernel stage")
     out = _three_body_stats(ang, cnt, masks, n_bins, lo, hi, n2x)
     stage_end("stats (device)")
     return out
 
 
+@clock.traced("call:three_body_calc")
 def three_body_calc(
     top_file,
     traj_file,
@@ -389,13 +388,13 @@ def _lsi_core(wat_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi):
     with a defined LSI: returns (hist (P+1, n_bins), (means (F, P+1),
     vars (F, P+1)))."""
     lsi_v, valid, _ = lsi_kernel.lsi_certified(wat_pos, boxes, low_cut, high_cut)
-    _log_tier("lsi_calc", lsi_kernel.last_tier)
     stage_end("kernel stage")
     out = _masked_value_pop_stats(lsi_v, masks, n_bins, lo, hi, valid=valid)
     stage_end("stats (device)")
     return out
 
 
+@clock.traced("call:lsi_calc")
 def lsi_calc(
     top_file,
     traj_file,
@@ -459,13 +458,13 @@ def _psi_core(end_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi):
     """psi-6 + population statistics for one frame batch: returns
     (hist (P+1, n_bins), (means (F, P+1), vars (F, P+1)))."""
     psi, _ = psi6_kernel.psi6_certified(end_pos, boxes, low_cut, high_cut)
-    _log_tier("hex_order_calc", psi6_kernel.last_tier)
     stage_end("kernel stage")
     out = _masked_value_pop_stats(psi, masks, n_bins, lo, hi)
     stage_end("stats (device)")
     return out
 
 
+@clock.traced("call:hex_order_calc")
 def hex_order_calc(
     top_file,
     traj_file,
@@ -576,9 +575,10 @@ def _run_chunked(
     `center_select(top) -> index array` overrides the water-oxygen centers.
     """
     top = top_file if isinstance(top_file, Topology) else load_topology(top_file)
-    wat_inds = _centers(top, wat_res, center_select)
+    with clock.span("topology"):
+        wat_inds = _centers(top, wat_res, center_select)
+        row_map = _row_of_atom(wat_inds, top.n_atoms)
     nw = len(wat_inds)
-    row_map = _row_of_atom(wat_inds, top.n_atoms)
 
     carry_acc = None
     stats_parts = []

@@ -20,6 +20,7 @@ import os
 
 import numpy as np
 
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end
 from waterorderlib_tpu_torch.drivers.orderparams import _not_ported, _resolve_system, _save_hist
 from waterorderlib_tpu_torch.stats import blocks
@@ -46,6 +47,14 @@ def _log_engine_once(driver: str, engine: str, extra: str = ""):
     )
 
 
+def _gather(traj, c0, c1, heavy):
+    """The heavy atoms of frames c0:c1 as float32, in a `gather` span."""
+    with clock.span("gather"):
+        pos_b = np.asarray(traj.positions[c0:c1][:, heavy], np.float32)
+        clock.count("gather_bytes", pos_b.nbytes)
+    return pos_b
+
+
 def _masked_stats(vals):
     vals = vals[~np.isinf(vals)]
     if len(vals) == 0:
@@ -53,6 +62,7 @@ def _masked_stats(vals):
     return float(np.mean(vals)), float(np.var(vals)), vals
 
 
+@clock.traced("call:voronoi_calc")
 def voronoi_calc(
     top_file,
     traj_file,
@@ -82,12 +92,13 @@ def voronoi_calc(
     _not_ported(mesh)
     dev = resolve_device(device)
     top, traj = _resolve_system(top_file, traj_file, stride)
-    wat_inds, _, _ = top.get_wat_inds(wat_res)
-    sol_inds, *_ = top.get_sol_inds(wat_res)
-    heavy = np.concatenate([wat_inds, sol_inds])
+    with clock.span("topology"):
+        wat_inds, _, _ = top.get_wat_inds(wat_res)
+        sol_inds, *_ = top.get_sol_inds(wat_res)
+        heavy = np.concatenate([wat_inds, sol_inds])
+        row_of_wat = {int(w): i for i, w in enumerate(wat_inds)}
     F = traj.n_frames
     nw = len(wat_inds)
-    row_of_wat = {int(w): i for i, w in enumerate(wat_inds)}
     eng = _pick_engine(engine, len(heavy), dev)
     _log_engine_once("voronoi_calc", eng)
     vol_b = area_b = None
@@ -104,7 +115,7 @@ def voronoi_calc(
             n_cert_tot = 0
             for c0 in range(0, F, cf):
                 c1 = min(c0 + cf, F)
-                pos_b = np.asarray(traj.positions[c0:c1][:, heavy], np.float32)
+                pos_b = _gather(traj, c0, c1, heavy)
                 box_ls = np.asarray(traj.boxes[c0:c1, 0], np.float64)
                 stage_end("host gather")
                 vol_b[c0:c1], area_b[c0:c1], n_c = voronoi_volumes_hybrid_frames(
@@ -194,7 +205,7 @@ def _contact_rows_iter(eng, traj, heavy, sol_rows, chunk_frames, device):
         cf = int(chunk_frames) if chunk_frames else min(F, 16)
         for c0 in range(0, F, cf):
             c1 = min(c0 + cf, F)
-            pos_b = np.asarray(traj.positions[c0:c1][:, heavy], np.float32)
+            pos_b = _gather(traj, c0, c1, heavy)
             box_ls = np.asarray(traj.boxes[c0:c1, 0], np.float64)
             stage_end("host gather")
             for rows, _, wat_rows, atom_vol, n_cert in _contacts_frames(
@@ -215,6 +226,7 @@ def _contact_rows_iter(eng, traj, heavy, sol_rows, chunk_frames, device):
         yield contacts[sol_rows], atom_vol, wat_area[0, sol_rows]
 
 
+@clock.traced("call:contact_area_calc")
 def contact_area_calc(
     top_file,
     traj_file,
@@ -247,22 +259,24 @@ def contact_area_calc(
     from waterorderlib_tpu_torch.drivers.hbonds_driver import get_bound_wrap
 
     top, traj = _resolve_system(top_file, traj_file, stride)
-    heavy = top.get_heavy_inds()
-    sol_inds, *_ = top.get_sol_inds(wat_res)
-    phobic = top.get_phobic_inds()
-    philic = top.get_philic_inds()
+    with clock.span("topology"):
+        heavy = top.get_heavy_inds()
+        sol_inds, *_ = top.get_sol_inds(wat_res)
+        phobic = top.get_phobic_inds()
+        philic = top.get_philic_inds()
 
-    heavy_row = {int(a): i for i, a in enumerate(heavy)}
-    to_rows = lambda inds: np.array([heavy_row[int(a)] for a in inds if int(a) in heavy_row], int)
-    sol_rows = to_rows(sol_inds)
-    phobic_rows = to_rows(phobic)
-    philic_rows = to_rows(philic)
-    # heavy atoms of each solute atom's own residue (excluded from targets)
-    sol_res_rows = []
-    for a in sol_inds:
-        res = top.res_ids[a]
-        members = np.where((top.res_ids == res) & (top.elements != "H"))[0]
-        sol_res_rows.append(set(to_rows(members).tolist()))
+        heavy_row = {int(a): i for i, a in enumerate(heavy)}
+        to_rows = lambda inds: np.array([heavy_row[int(a)] for a in inds if int(a) in heavy_row],
+                                        int)
+        sol_rows = to_rows(sol_inds)
+        phobic_rows = to_rows(phobic)
+        philic_rows = to_rows(philic)
+        # heavy atoms of each solute atom's own residue (excluded from targets)
+        sol_res_rows = []
+        for a in sol_inds:
+            res = top.res_ids[a]
+            members = np.where((top.res_ids == res) & (top.elements != "H"))[0]
+            sol_res_rows.append(set(to_rows(members).tolist()))
     stage_end("host gather")
 
     bw = get_bound_wrap(top, traj, wat_res=wat_res, cutoff=cutoff, hb_dist=hb_dist,
@@ -310,6 +324,7 @@ def contact_area_calc(
     return tot_area_res, tot_ci, frac_res, frac_ci
 
 
+@clock.traced("call:hydrated_volume_calc")
 def hydrated_volume_calc(
     top_file,
     traj_file,
@@ -329,10 +344,11 @@ def hydrated_volume_calc(
     _not_ported(mesh)
     dev = resolve_device(device)
     top, traj = _resolve_system(top_file, traj_file, stride)
-    heavy = top.get_heavy_inds()
-    sol_inds, *_ = top.get_sol_inds(wat_res)
-    heavy_row = {int(a): i for i, a in enumerate(heavy)}
-    sol_rows = np.array([heavy_row[int(a)] for a in sol_inds], int)
+    with clock.span("topology"):
+        heavy = top.get_heavy_inds()
+        sol_inds, *_ = top.get_sol_inds(wat_res)
+        heavy_row = {int(a): i for i, a in enumerate(heavy)}
+        sol_rows = np.array([heavy_row[int(a)] for a in sol_inds], int)
     F = traj.n_frames
     vols = np.zeros(F)
     areas = np.zeros(F)

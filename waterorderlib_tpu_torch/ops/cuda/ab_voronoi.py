@@ -176,8 +176,6 @@ def _voronoi(a, build, record):
         seen["window"].append(args)
         return wk(*args)
 
-    # each wrapper counts its launches on the module's name for it
-    cap_ck.launches = cap_kk.launches = cap_wk.launches = 0
     vt.voronoi_cellgrid_topk, vt.voronoi_window_topk = cap_ck, cap_wk
     vc.voronoi_cells_fused = cap_kk
     try:
@@ -369,14 +367,13 @@ def _shapes(build, key, fn, args, want, a):
 
 def _captured(module, name, fn):
     """Run fn; the arguments of every launch it made of module.<name> (each
-    launch runs as usual; the wrapper counts it on the module's name)."""
+    launch runs as usual, counted by the wrapper)."""
     real, seen = getattr(module, name), []
 
     def record(*args):
         seen.append(args)
         return real(*args)
 
-    record.launches = 0
     setattr(module, name, record)
     try:
         fn()

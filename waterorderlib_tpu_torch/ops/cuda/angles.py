@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.core.fp32 import fma_f32, sqrt_f32
 from waterorderlib_tpu_torch.ops.cuda import window
 
@@ -56,6 +57,7 @@ def acos_poly(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, r, f32(np.pi) - r)
 
 
+@clock.kernel
 def angles_window(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq):
     """Pair angles of R rows against one column window per row tile (the
     contract of ops/cuda/window.py). low_sq, high_sq: squared shell bounds.
@@ -71,18 +73,15 @@ def angles_window(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq):
     count = torch.empty((F, n_rows), dtype=torch.int32, device=rows.device)
     window.launch("nbr_window", "angles_window_launch", rows, cols, starts, boxes, w, row_tile,
                   (low_sq, high_sq), (ang, count))
-    angles_window.launches += 1
+    clock.count("launches:angles_window")
     return ang, count
 
 
-angles_window.launches = 0
-
-
+@clock.plain
 def angles_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq):
     """Plain PyTorch version of `angles_window`, same contract and slot
     order (16 rounds of lowest-column minimum extraction)."""
     window.check(rows, cols, starts, boxes, w, row_tile)
-    angles_window_plain.calls += 1
     F, _, n_rows = rows.shape
     dev = rows.device
     ang = torch.full((F, n_rows, N_PAIRS_PAD), -1.0, dtype=torch.float32, device=dev)
@@ -103,14 +102,12 @@ def angles_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq)
     return ang, count
 
 
-angles_window_plain.calls = 0
+# `last_tier`: which tier served the most recent
+# neighbor_pair_angles_certified call, "slab" | "brute"
+__getattr__ = clock.tier_attr("neighbor_pair_angles_certified", __name__)
 
 
-# which tier served the most recent neighbor_pair_angles_certified call:
-# "slab" | "brute" (drivers log it)
-last_tier: str = "none"
-
-
+@clock.traced("dispatch:neighbor_pair_angles_certified", device=True)
 def neighbor_pair_angles_certified(pos, boxes, low_cut=0.0, high_cut=3.413, row_tile=128):
     """Pair angles with certified exactness (`window.certified`): the slab
     form at margin max(4.5, high_cut) (4.5 is the JAX package's margin
@@ -118,8 +115,7 @@ def neighbor_pair_angles_certified(pos, boxes, low_cut=0.0, high_cut=3.413, row_
     pos: (F, N, 3) f32; boxes: (F, 3) f32.
     Returns (ang (F, N, 128), count (F, N) int32) in the original atom order.
     """
-    global last_tier
-
-    out, last_tier = window.certified(angles_window, pos, boxes, max(4.5, high_cut), row_tile,
-                                      low_cut * low_cut, high_cut * high_cut)
+    out, tier = window.certified(angles_window, pos, boxes, max(4.5, high_cut), row_tile,
+                                 low_cut * low_cut, high_cut * high_cut)
+    clock.serve_tier("neighbor_pair_angles_certified", tier)
     return out

@@ -39,7 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from waterorderlib_tpu_torch.core import pbc
+from waterorderlib_tpu_torch.core import clock, pbc
 from waterorderlib_tpu_torch.core.fp32 import sqrt_f32, xla_dot3
 from waterorderlib_tpu_torch.ops.cuda import build, window
 
@@ -168,6 +168,7 @@ def _scalars(acc, dist_sq, cc):
             torch.tensor(cc, dtype=torch.float32, device=dev))
 
 
+@clock.kernel
 def hbond_dense(acc, don, donh, vhat, boxes, dist_sq, cc):
     """Counts of the bond matrix of every acceptor against every donor.
     acc (F, 3, Na); don, donh, vhat (F, 3, Nd) (`dense_prep`); boxes (F, 3);
@@ -181,18 +182,15 @@ def hbond_dense(acc, don, donh, vhat, boxes, dist_sq, cc):
         return (torch.zeros(acc.shape[::2], dtype=torch.int32, device=acc.device),
                 torch.zeros(don.shape[::2], dtype=torch.int32, device=acc.device))
     out = _launch("hbond_dense_launch", acc, don, donh, vhat, boxes, dist_sq, cc)
-    hbond_dense.launches += 1
+    clock.count("launches:hbond_dense")
     return out
 
 
-hbond_dense.launches = 0
-
-
+@clock.plain
 def hbond_dense_plain(acc, don, donh, vhat, boxes, dist_sq, cc):
     """Plain PyTorch version of `hbond_dense`, same contract, in blocks of
     at most PAIR_BUDGET (frame, acceptor, donor) triples."""
     _check(acc, don, donh, vhat, boxes)
-    hbond_dense_plain.calls += 1
     F, _, na = acc.shape
     nd = don.shape[2]
     ds, c = _scalars(acc, dist_sq, cc)
@@ -210,9 +208,7 @@ def hbond_dense_plain(acc, don, donh, vhat, boxes, dist_sq, cc):
     return acc_cnt, don_cnt
 
 
-hbond_dense_plain.calls = 0
-
-
+@clock.kernel
 def hbond_slab(acc, don, donh, vhat, starts, boxes, w, dist_sq, cc):
     """Counts of each tile of ROW_TILE acceptors against its window of w
     donor columns. acc (F, 3, R); don, donh, vhat (F, 3, C); starts (F,
@@ -226,20 +222,17 @@ def hbond_slab(acc, don, donh, vhat, starts, boxes, w, dist_sq, cc):
     if window.runs_plain(acc, "hbond_slab"):
         return hbond_slab_plain(acc, don, donh, vhat, starts, boxes, w, dist_sq, cc)
     out = _launch("hbond_slab_launch", acc, don, donh, vhat, boxes, dist_sq, cc, starts, w)
-    hbond_slab.launches += 1
+    clock.count("launches:hbond_slab")
     return out
 
 
-hbond_slab.launches = 0
-
-
+@clock.plain
 def hbond_slab_plain(acc, don, donh, vhat, starts, boxes, w, dist_sq, cc):
     """Plain PyTorch version of `hbond_slab`, same contract, one tile at a
     time (each frame's window gathered from its own start)."""
     _check(acc, don, donh, vhat, boxes, starts)
     if not 0 < w <= don.shape[2]:
         raise ValueError(f"window w={w} must lie in (0, {don.shape[2]}]")
-    hbond_slab_plain.calls += 1
     F, _, n_rows = acc.shape
     n_cols = don.shape[2]
     dev = acc.device
@@ -259,9 +252,6 @@ def hbond_slab_plain(acc, don, donh, vhat, starts, boxes, w, dist_sq, cc):
         acc_cnt[:, r0:r1] = torch.where(bad[:, None], -1, b.sum(dim=2, dtype=torch.int32))
         don_cnt.scatter_add_(1, cols, b.sum(dim=1, dtype=torch.int32))
     return acc_cnt, don_cnt
-
-
-hbond_slab_plain.calls = 0
 
 
 def hbond_counts(acc_pos, don_pos, donh_pos, boxes, dist_cut=3.5, ang_cut=120.0):
@@ -395,11 +385,12 @@ def hbond_counts_slab_plain(acc_pos, don_pos, donh_pos, boxes, dist_cut=3.5, ang
                         window_w, pad)
 
 
-# which tier served the most recent hbond_counts_certified call: "dense" |
-# "slab" | "slab+dense" (some frames failed `covered`; drivers log it)
-last_tier: str = "none"
+# `last_tier`: which tier served the most recent hbond_counts_certified
+# call, "dense" | "slab" | "slab+dense" (some frames failed `covered`)
+__getattr__ = clock.tier_attr("hbond_counts_certified", __name__)
 
 
+@clock.traced("dispatch:hbond_counts_certified", device=True)
 def hbond_counts_certified(acc_pos, don_pos, donh_pos, boxes, dist_cut=3.5, ang_cut=120.0):
     """Water-water counts on the JAX hb_calc's tier (hbonds_driver.py:
     81-127): the dense kernel below SLAB_MIN_WATERS acceptors; at and above
@@ -407,11 +398,9 @@ def hbond_counts_certified(acc_pos, don_pos, donh_pos, boxes, dist_cut=3.5, ang_
     dist_cut)` and pad `suggest_pad_two_set(Nd, L_z, dist_cut + 2)`, the
     frames whose `covered` fails recomputed by the dense kernel. Both tiers
     are exact. Returns (acc counts (F, Na), donor counts (F, Nd)) int32."""
-    global last_tier
-
     na, nd = acc_pos.shape[1], don_pos.shape[1]
     if na < SLAB_MIN_WATERS:
-        last_tier = "dense"
+        clock.serve_tier("hbond_counts_certified", "dense")
         return hbond_counts(acc_pos, don_pos, donh_pos, boxes, dist_cut, ang_cut)
     box_z = float(boxes[0, 2])
     win = suggest_window_two_set(na, nd, box_z, dist_cut)
@@ -420,9 +409,9 @@ def hbond_counts_certified(acc_pos, don_pos, donh_pos, boxes, dist_cut=3.5, ang_
                                                   ang_cut, win, pad)
     bad = torch.nonzero(~covered)[:, 0]
     if bad.numel() == 0:
-        last_tier = "slab"
+        clock.serve_tier("hbond_counts_certified", "slab")
         return acc_cnt, don_cnt
-    last_tier = "slab+dense"
+    clock.serve_tier("hbond_counts_certified", "slab+dense")
     a, d = hbond_counts(acc_pos[bad], don_pos[bad], donh_pos[bad], boxes[bad], dist_cut, ang_cut)
     acc_cnt[bad], don_cnt[bad] = a, d
     return acc_cnt, don_cnt

@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.core.fp32 import sqrt_f32
 from waterorderlib_tpu_torch.ops.cuda import slab, window
 
@@ -44,6 +45,7 @@ def _outs(rows, n):
     return tuple(torch.empty((F, n_rows), dtype=k, device=dev) for k in kinds)
 
 
+@clock.kernel
 def lsi_window(rows, cols, starts, boxes, w, row_tile, raw_rows, raw_cols, low_sq, high,
                outer_sq):
     """LSI (K = 24) of R rows against one column window per row tile (the
@@ -62,13 +64,11 @@ def lsi_window(rows, cols, starts, boxes, w, row_tile, raw_rows, raw_cols, low_s
     outs = _outs(rows, 3)
     window.launch("lsi_window", "lsi_window_launch", rows, cols, starts, boxes, w, row_tile,
                   (low_sq, high, outer_sq), outs, extra=window.raw_args(raw_rows, raw_cols))
-    lsi_window.launches += 1
+    clock.count("launches:lsi_window")
     return outs
 
 
-lsi_window.launches = 0
-
-
+@clock.kernel
 def lsi_split_window(rows, cols, starts, boxes, w, row_tile, raw_rows, raw_cols, starts_wide,
                      w_wide, low_sq, high, high_sq, outer_sq):
     """Split-shell LSI of R rows: the contract's window (starts, w) is the
@@ -88,11 +88,8 @@ def lsi_split_window(rows, cols, starts, boxes, w, row_tile, raw_rows, raw_cols,
         (ctypes.c_void_p, starts_wide.data_ptr()), (ctypes.c_int, w_wide))
     window.launch("lsi_window", "lsi_split_launch", rows, cols, starts, boxes, w, row_tile,
                   (low_sq, high, high_sq, outer_sq), outs, extra=extra)
-    lsi_split_window.launches += 1
+    clock.count("launches:lsi_split_window")
     return outs
-
-
-lsi_split_window.launches = 0
 
 
 def _epilogue(dist, rawsq, fin, high):
@@ -143,13 +140,13 @@ def _raw_dsq(raw_rows, raw_cols, r0, r1, col):
     return window.dot3(e[:, 0], e[:, 0], e[:, 1], e[:, 1], e[:, 2], e[:, 2], fused=True)
 
 
+@clock.plain
 def lsi_window_plain(rows, cols, starts, boxes, w, row_tile, raw_rows, raw_cols, low_sq, high,
                      outer_sq):
     """Plain PyTorch version of `lsi_window`, same contract and slot order
     (24 rounds of lowest-column minimum extraction)."""
     window.check(rows, cols, starts, boxes, w, row_tile)
     window.check_raw(rows, cols, raw_rows, raw_cols)
-    lsi_window_plain.calls += 1
     outs = _outs(rows, 3)
     tiles = window.topk_tiles(rows, cols, starts, boxes, w, row_tile, low_sq, outer_sq, K,
                               fused=True)
@@ -162,9 +159,6 @@ def lsi_window_plain(rows, cols, starts, boxes, w, row_tile, raw_rows, raw_cols,
     return outs
 
 
-lsi_window_plain.calls = 0
-
-
 def _window_dsq(rows, cols, boxes, r0, r1, s, w):
     """(F, r, w) imaged squared distances of rows [r0, r1) to columns
     [s, s + w), as the kernels' `dot3`."""
@@ -172,6 +166,7 @@ def _window_dsq(rows, cols, boxes, r0, r1, s, w):
     return window.dot3(d[:, 0], d[:, 0], d[:, 1], d[:, 1], d[:, 2], d[:, 2], fused=True)
 
 
+@clock.plain
 def lsi_split_window_plain(rows, cols, starts, boxes, w, row_tile, raw_rows, raw_cols,
                            starts_wide, w_wide, low_sq, high, high_sq, outer_sq):
     """Plain PyTorch version of `lsi_split_window`, same contract: the K_IN
@@ -181,7 +176,6 @@ def lsi_split_window_plain(rows, cols, starts, boxes, w, row_tile, raw_rows, raw
     window.check(rows, cols, starts, boxes, w, row_tile)
     window.check(rows, cols, starts_wide, boxes, w_wide, row_tile)
     window.check_raw(rows, cols, raw_rows, raw_cols)
-    lsi_split_window_plain.calls += 1
     dev = rows.device
     low, hi2, out2 = (torch.tensor(v, dtype=torch.float32, device=dev)
                       for v in (low_sq, high_sq, outer_sq))
@@ -218,9 +212,6 @@ def lsi_split_window_plain(rows, cols, starts, boxes, w, row_tile, raw_rows, raw
     return outs
 
 
-lsi_split_window_plain.calls = 0
-
-
 def split_tier(n: int, box_z: float, high_cut: float) -> bool:
     """Whether a system of `n` centers takes the split-shell tier.
 
@@ -243,11 +234,12 @@ def split_tier(n: int, box_z: float, high_cut: float) -> bool:
     return n <= 400_000 and need <= 14_000_000
 
 
-# which tier served the most recent lsi_certified call: "slab" | "slab-split"
-# | "brute" (drivers log it)
-last_tier: str = "none"
+# `last_tier`: which tier served the most recent lsi_certified call, "slab"
+# | "slab-split" | "brute"
+__getattr__ = clock.tier_attr("lsi_certified", __name__)
 
 
+@clock.traced("dispatch:lsi_certified", device=True)
 def lsi_certified(pos, boxes, low_cut=0.0, high_cut=3.7):
     """LSI with certified exactness, on the JAX package's tier for this size.
 
@@ -261,8 +253,6 @@ def lsi_certified(pos, boxes, low_cut=0.0, high_cut=3.7):
     Returns (lsi (F, N) f32, valid (F, N) bool, count (F, N) int32) in the
     original atom order.
     """
-    global last_tier
-
     n, box_z = pos.shape[1], float(boxes[0, 2])
     outer = high_cut + NEXT_SHELL
     low_sq, high_sq, outer_sq = low_cut * low_cut, high_cut * high_cut, outer * outer
@@ -279,8 +269,9 @@ def lsi_certified(pos, boxes, low_cut=0.0, high_cut=3.7):
                 low_sq, high_cut, high_sq, outer_sq,
             )
             if not bool(incomplete.any()):
-                last_tier = "slab-split"
+                clock.serve_tier("lsi_certified", "slab-split")
                 return tuple(slab.unsort_frames(o, prep.order0) for o in (lsi, valid, count))
-    out, last_tier = window.certified(lsi_window, pos, boxes, outer, ROW_TILE,
-                                      low_sq, high_cut, outer_sq, raw=True)
+    out, tier = window.certified(lsi_window, pos, boxes, outer, ROW_TILE,
+                                 low_sq, high_cut, outer_sq, raw=True)
+    clock.serve_tier("lsi_certified", tier)
     return out

@@ -19,12 +19,14 @@ import math
 
 import torch
 
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.core.fp32 import sqrt_f32
 from waterorderlib_tpu_torch.ops.cuda import window
 
 K = 24
 
 
+@clock.kernel
 def psi6_window(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq):
     """psi6 of R rows against one column window per row tile (the contract
     of ops/cuda/window.py). low_sq, high_sq: squared shell bounds.
@@ -40,19 +42,16 @@ def psi6_window(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq):
     count = torch.empty((F, n_rows), dtype=torch.int32, device=rows.device)
     window.launch("nbr_window", "psi6_window_launch", rows, cols, starts, boxes, w, row_tile,
                   (low_sq, high_sq), (psi, count))
-    psi6_window.launches += 1
+    clock.count("launches:psi6_window")
     return psi, count
 
 
-psi6_window.launches = 0
-
-
+@clock.plain
 def psi6_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq):
     """Plain PyTorch version of `psi6_window`, same contract and slot order
     (24 rounds of lowest-column minimum extraction); the pairs (a, b) are
     summed over a < b for each b = 1..K-1, as the kernel sums them."""
     window.check(rows, cols, starts, boxes, w, row_tile)
-    psi6_window_plain.calls += 1
     F, _, n_rows = rows.shape
     psi = torch.empty((F, n_rows), dtype=torch.float32, device=rows.device)
     count = torch.empty((F, n_rows), dtype=torch.int32, device=rows.device)
@@ -82,22 +81,19 @@ def psi6_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq):
     return psi, count
 
 
-psi6_window_plain.calls = 0
+# `last_tier`: which tier served the most recent psi6_certified call, "slab"
+# | "brute"
+__getattr__ = clock.tier_attr("psi6_certified", __name__)
 
 
-# which tier served the most recent psi6_certified call: "slab" | "brute"
-# (drivers log it)
-last_tier: str = "none"
-
-
+@clock.traced("dispatch:psi6_certified", device=True)
 def psi6_certified(pos, boxes, low_cut=0.0, high_cut=7.0, row_tile=128):
     """psi6 with certified exactness (`window.certified`): the slab form at
     margin = high_cut, else the brute form of the same kernel.
     pos: (F, N, 3) f32; boxes: (F, 3) f32.
     Returns (psi (F, N), count (F, N) int32) in the original atom order.
     """
-    global last_tier
-
-    out, last_tier = window.certified(psi6_window, pos, boxes, high_cut, row_tile,
-                                      low_cut * low_cut, high_cut * high_cut)
+    out, tier = window.certified(psi6_window, pos, boxes, high_cut, row_tile,
+                                 low_cut * low_cut, high_cut * high_cut)
+    clock.serve_tier("psi6_certified", tier)
     return out

@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.ops.cuda import window
 from waterorderlib_tpu_torch.ops.cuda.slab import (
     brute_cols, plan, slab_prep_traj, unsort_frames,
@@ -59,6 +60,7 @@ def _outputs(rows):
             torch.empty((F, n_rows), dtype=torch.bool, device=rows.device))
 
 
+@clock.kernel
 def q_window(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq):
     """q_tet and the per-row exactness flag of R rows against one column
     window per row tile (the contract of ops/cuda/window.py; `starts` may
@@ -74,13 +76,11 @@ def q_window(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq)
     q, ok = _outputs(rows)
     _launch("qtet_window_launch", rows, cols, starts, boxes, w, row_tile, low_sq, high_sq,
             margin_sq, (q, ok))
-    q_window.launches += 1
+    clock.count("launches:q_window")
     return q, ok
 
 
-q_window.launches = 0
-
-
+@clock.kernel
 def q_window_hist(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq):
     """`q_window` and, from the same kernel's epilogue, the 500-bin
     histogram of every row's q over [0, 1] (`q_hist`'s rule). Returns (q,
@@ -92,11 +92,8 @@ def q_window_hist(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margi
     hist = torch.zeros(Q_BINS, dtype=torch.int32, device=rows.device)
     _launch("qtet_window_hist_launch", rows, cols, starts, boxes, w, row_tile, low_sq, high_sq,
             margin_sq, (q, ok, hist))
-    q_window_hist.launches += 1
+    clock.count("launches:q_window_hist")
     return q, ok, hist
-
-
-q_window_hist.launches = 0
 
 
 def _q_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq):
@@ -122,24 +119,18 @@ def _q_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq)
     return q, ok
 
 
+@clock.plain
 def q_window_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq):
     """Plain PyTorch version of `q_window`, same contract and tie-break
     (4 rounds of lowest-column minimum extraction, as slab.extract_k_min)."""
-    q_window_plain.calls += 1
     return _q_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq)
 
 
-q_window_plain.calls = 0
-
-
+@clock.plain
 def q_window_hist_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq):
     """Plain PyTorch version of `q_window_hist`."""
-    q_window_hist_plain.calls += 1
     q, ok = _q_plain(rows, cols, starts, boxes, w, row_tile, low_sq, high_sq, margin_sq)
     return q, ok, q_hist(q)
-
-
-q_window_hist_plain.calls = 0
 
 
 def q_hist(q: torch.Tensor) -> torch.Tensor:
@@ -206,9 +197,9 @@ def order_param_q_traj(
     return unsort_frames(q, prep.order0), unsort_frames(ok, prep.order0), prep.covered[0]
 
 
-# which tier served the most recent order_param_q_certified call:
-# "slab" | "brute" (drivers log it)
-last_tier: str = "none"
+# `last_tier`: which tier served the most recent order_param_q_certified
+# call, "slab" | "brute" (the registry's `tier:order_param_q_certified:*`)
+__getattr__ = clock.tier_attr("order_param_q_certified", __name__)
 
 
 def _patch_stragglers(q, bad, pos, boxes, low_cut, high_cut, row_tile):
@@ -227,6 +218,7 @@ def _patch_stragglers(q, bad, pos, boxes, low_cut, high_cut, row_tile):
         q[f, idx] = qf[0]
 
 
+@clock.traced("dispatch:order_param_q_certified", device=True)
 def order_param_q_certified(
     pos: torch.Tensor,
     boxes: torch.Tensor,
@@ -244,22 +236,19 @@ def order_param_q_certified(
     brute form over everything. pos: (F, N, 3) f32; boxes: (F, 3) f32.
     Returns q (F, N) in the original atom order.
     """
-    global last_tier
-
     n = pos.shape[1]
     window, pad = plan(n, float(boxes[0, 2]), margin, row_tile)
     if window < n:
-        last_tier = "slab"
         q, ok, cov = order_param_q_traj(
             pos, boxes, low_cut, high_cut, margin=margin,
             row_tile=row_tile, window=window, pad=pad,
         )
         if bool(cov.all()):
-            if bool(ok.all()):
-                return q
             bad = ~ok
-            if float(bad.float().mean()) < 1e-3:
-                _patch_stragglers(q, bad, pos, boxes, low_cut, high_cut, row_tile)
+            if bool(ok.all()) or float(bad.float().mean()) < 1e-3:
+                if not bool(ok.all()):
+                    _patch_stragglers(q, bad, pos, boxes, low_cut, high_cut, row_tile)
+                clock.serve_tier("order_param_q_certified", "slab")
                 return q
-    last_tier = "brute"
+    clock.serve_tier("order_param_q_certified", "brute")
     return order_param_q_frames(pos, boxes, low_cut, high_cut, row_tile=row_tile)

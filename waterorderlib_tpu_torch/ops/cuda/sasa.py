@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from waterorderlib_tpu_torch.core import pbc
+from waterorderlib_tpu_torch.core import clock, pbc
 from waterorderlib_tpu_torch.core.fp32 import fma_f32
 from waterorderlib_tpu_torch.ops.cuda import build, window
 
@@ -95,6 +95,7 @@ def _launch(entry, argtypes, args):
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
 
 
+@clock.kernel
 def sasa_topk(centers, radii, points, occ, occ_rsq, valid):
     """Visible point counts (N,) int32 of each atom against its K occluder
     slots. centers (N, 3), radii (N,), points (P, 3) unit points, occ
@@ -110,18 +111,15 @@ def sasa_topk(centers, radii, points, occ, occ_rsq, valid):
     _launch("sasa_topk_launch",
             [_c_ptr, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr],
             (centers, radii, n, points, points.shape[0], occ, occ_rsq, valid, k, n_vis))
-    sasa_topk.launches += 1
+    clock.count("launches:sasa_topk")
     return n_vis
 
 
-sasa_topk.launches = 0
-
-
+@clock.plain
 def sasa_topk_plain(centers, radii, points, occ, occ_rsq, valid):
     """Plain PyTorch version of `sasa_topk`, blocked over atoms."""
     _check(centers, radii, points, ("occ", occ), ("occ_rsq", occ_rsq), ("valid", valid))
     _check_slots(centers, occ, occ_rsq, valid)
-    sasa_topk_plain.calls += 1
     n, k = occ.shape[:2]
     rsq = torch.where(valid, occ_rsq, -math.inf)
     return torch.cat([
@@ -130,9 +128,7 @@ def sasa_topk_plain(centers, radii, points, occ, occ_rsq, valid):
     ] or [torch.zeros(0, dtype=torch.int32, device=centers.device)])
 
 
-sasa_topk_plain.calls = 0
-
-
+@clock.kernel
 def sasa_brute(centers, radii, points, box):
     """Visible point counts (N,) int32 of each atom against all N atoms,
     each reimaged around the atom in `box` (3,) (a non-positive edge: no
@@ -147,17 +143,14 @@ def sasa_brute(centers, radii, points, box):
     n_vis = torch.empty(n, dtype=torch.int32, device=centers.device)
     _launch("sasa_brute_launch", [_c_ptr, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr],
             (centers, radii, n, points, points.shape[0], box, n_vis))
-    sasa_brute.launches += 1
+    clock.count("launches:sasa_brute")
     return n_vis
 
 
-sasa_brute.launches = 0
-
-
+@clock.plain
 def sasa_brute_plain(centers, radii, points, box):
     """Plain PyTorch version of `sasa_brute`, blocked over atoms."""
     _check(centers, radii, points, ("box", box))
-    sasa_brute_plain.calls += 1
     n = centers.shape[0]
     rsq = radii * radii
     idx = torch.arange(n, device=centers.device)
@@ -168,6 +161,3 @@ def sasa_brute_plain(centers, radii, points, box):
         own = torch.where(idx[s:e, None] == idx[None, :], -math.inf, rsq[None, :])
         outs.append(_n_visible(_points_at(c, radii[s:e], points), occ, own))
     return torch.cat(outs or [torch.zeros(0, dtype=torch.int32, device=centers.device)])
-
-
-sasa_brute_plain.calls = 0

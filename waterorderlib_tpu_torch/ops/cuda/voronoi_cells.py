@@ -30,6 +30,7 @@ import ctypes
 import numpy as np
 import torch
 
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.ops.cuda import build, window
 
 MAX_K = 48  # kMaxK in csrc/voronoi_cells.cu: a face's slots are bits of one 64-bit mask
@@ -113,6 +114,7 @@ def _check(kernel: bool, rel_parked, valid, is_boundary, k, dedup_mode):
         raise ValueError(f"dedup_mode must be one of {DEDUP_MODES}, got {dedup_mode!r}")
 
 
+@clock.kernel
 def voronoi_cells_fused(rel_parked, valid, is_boundary, k: int, eps: float,
                         dedup_mode: str = "auto") -> dict:
     """Cell moments of R rows: rel_parked (R, ks, 3) the candidates relative
@@ -149,13 +151,11 @@ def voronoi_cells_fused(rel_parked, valid, is_boundary, k: int, eps: float,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"voronoi_cells_launch failed: CUDA error {err}")
-    voronoi_cells_fused.launches += 1
+    clock.count("launches:voronoi_cells_fused")
     return {key: out[key] for key in _OUT_KEYS}
 
 
-voronoi_cells_fused.launches = 0
-
-
+@clock.plain
 def voronoi_cells_fused_plain(rel_parked, valid, is_boundary, k: int, eps: float,
                               dedup_mode: str = "auto") -> dict:
     """Plain PyTorch version of `voronoi_cells_fused`: the clip builder,
@@ -164,9 +164,5 @@ def voronoi_cells_fused_plain(rel_parked, valid, is_boundary, k: int, eps: float
     from waterorderlib_tpu_torch.surface import voronoi_device as vd
 
     _check(False, rel_parked, valid, is_boundary, k, dedup_mode)
-    voronoi_cells_fused_plain.calls += 1
     return vd._clip_cells(rel_parked, valid, k, eps,
                           is_boundary=None if dedup_mode == "always" else is_boundary)
-
-
-voronoi_cells_fused_plain.calls = 0

@@ -38,6 +38,7 @@ import math
 
 import torch
 
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.core.fp32 import sqrt_f32
 from waterorderlib_tpu_torch.ops.cuda import build, window
 
@@ -219,6 +220,7 @@ def _select(dsq, k):
     return dist, torch.where(ok, lane, torch.full_like(lane, -1)), ok
 
 
+@clock.kernel
 def voronoi_window_topk(centers, exts, starts, k, row_block, win, tested=None):
     """The k nearest of each row's window: (dist (F, R, k), pos (F, R, k)
     int32 positions in the sorted candidates, -1 where empty). centers
@@ -244,19 +246,16 @@ def voronoi_window_topk(centers, exts, starts, k, row_block, win, tested=None):
              _c_int, _c_ptr, _c_ptr, _c_ptr],
             (centers, R, row_block, exts, exts.shape[1], starts, R // row_block, win, k, F,
              _window_split(F * R), tested, dist, pos))
-    voronoi_window_topk.launches += 1
+    clock.count("launches:voronoi_window_topk")
     return dist, pos
 
 
-voronoi_window_topk.launches = 0
-
-
+@clock.plain
 def voronoi_window_topk_plain(centers, exts, starts, k, row_block, win):
     """Plain PyTorch version of `voronoi_window_topk`, in steps of row
     blocks."""
     _check_coords(False, centers=centers, exts=exts)
     _check_window(centers, exts, starts, k, row_block, win)
-    voronoi_window_topk_plain.calls += 1
     F, R, _ = centers.shape
     nb = R // row_block
     dist = torch.empty((F, R, k), dtype=centers.dtype, device=centers.device)
@@ -277,9 +276,7 @@ def voronoi_window_topk_plain(centers, exts, starts, k, row_block, win):
     return dist, pos
 
 
-voronoi_window_topk_plain.calls = 0
-
-
+@clock.kernel
 def voronoi_cellgrid_topk(centers, cid, tbl_pos, tbl_idx, n_side, k):
     """The k nearest of each row's 27-cell neighborhood: (dist (F, R, k),
     idx (F, R, k) int32 candidate ids, -1 where empty). centers (F, R, 3);
@@ -301,19 +298,16 @@ def voronoi_cellgrid_topk(centers, cid, tbl_pos, tbl_idx, n_side, k):
              _c_ptr, _c_int, _c_ptr, _c_ptr],
             (centers, cid, R, tbl_pos, tbl_idx, n_side, cap, k, F, _scan_order(centers.device),
              order, GROUP_ROWS, dist, idx))
-    voronoi_cellgrid_topk.launches += 1
+    clock.count("launches:voronoi_cellgrid_topk")
     return dist, idx
 
 
-voronoi_cellgrid_topk.launches = 0
-
-
+@clock.plain
 def voronoi_cellgrid_topk_plain(centers, cid, tbl_pos, tbl_idx, n_side, k):
     """Plain PyTorch version of `voronoi_cellgrid_topk`: each row's 27
     cells gathered as lanes o * cap + slot, in steps of rows."""
     _check_coords(False, centers=centers, tbl_pos=tbl_pos)
     _check_cellgrid(centers, cid, tbl_pos, tbl_idx, n_side, k)
-    voronoi_cellgrid_topk_plain.calls += 1
     F, R, _ = centers.shape
     cap = tbl_idx.shape[-1]
     offs = torch.tensor(_offsets(n_side), device=centers.device)
@@ -331,6 +325,3 @@ def voronoi_cellgrid_topk_plain(centers, cid, tbl_pos, tbl_idx, n_side, k):
             dist[f, r0:r1] = d
             idx[f, r0:r1] = torch.where(ok, ids.gather(1, lane.clamp(min=0)), lane).to(torch.int32)
     return dist, idx
-
-
-voronoi_cellgrid_topk_plain.calls = 0

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.ops.cuda import build, window
 
 # added to the 3-sigma reach in the window search and the certificate: the
@@ -109,6 +110,7 @@ def _check_grid(atoms, starts, w, box, grid):
         raise ValueError(f"ny={ny} exceeds {MAX_NY} grid points along y")
 
 
+@clock.kernel
 def willard_grid(atoms, starts, w, box, grid, smoothlen=2.4):
     """Density and gradient on every point of `grid`.
 
@@ -136,18 +138,15 @@ def willard_grid(atoms, starts, w, box, grid, smoothlen=2.4):
                  *scalars(smoothlen), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"willard_grid_launch failed: CUDA error {err}")
-    willard_grid.launches += 1
+    clock.count("launches:willard_grid")
     return out
 
 
-willard_grid.launches = 0
-
-
+@clock.plain
 def willard_grid_plain(atoms, starts, w, box, grid, smoothlen=2.4):
     """Plain PyTorch version of `willard_grid`, same contract and float32
     operations, one plane at a time in blocks of rows."""
     _check_grid(atoms, starts, w, box, grid)
-    willard_grid_plain.calls += 1
     dev = atoms.device
     (gx0, dgx, nx), (gy0, dgy, ny), (gz0, dgz, nz) = grid
     m = atoms.shape[2]
@@ -182,9 +181,6 @@ def willard_grid_plain(atoms, starts, w, box, grid, smoothlen=2.4):
     return out
 
 
-willard_grid_plain.calls = 0
-
-
 def _check_points(atoms_t, pts_t, box):
     dev = atoms_t.device
     _check_box(box, dev)
@@ -196,6 +192,7 @@ def _check_points(atoms_t, pts_t, box):
             raise ValueError(f"{name} must be contiguous")
 
 
+@clock.kernel
 def willard_points(atoms_t, pts_t, box, smoothlen=2.4):
     """Density and gradient at arbitrary points over all atoms, round-form
     minimum image. atoms_t (3, N), pts_t (3, P) float32; box (3,).
@@ -216,18 +213,15 @@ def willard_points(atoms_t, pts_t, box, smoothlen=2.4):
                  shift, peak, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"willard_points_launch failed: CUDA error {err}")
-    willard_points.launches += 1
+    clock.count("launches:willard_points")
     return out
 
 
-willard_points.launches = 0
-
-
+@clock.plain
 def willard_points_plain(atoms_t, pts_t, box, smoothlen=2.4):
     """Plain PyTorch version of `willard_points`, same contract and float32
     operations, in blocks of points of under PAIR_BUDGET pairs."""
     _check_points(atoms_t, pts_t, box)
-    willard_points_plain.calls += 1
     dev = atoms_t.device
     n, p = atoms_t.shape[1], pts_t.shape[1]
     sig2, _, peak, shift = (_f32(v, dev) for v in scalars(smoothlen))
@@ -246,9 +240,6 @@ def willard_points_plain(atoms_t, pts_t, box, smoothlen=2.4):
         out[0, p0 : p0 + pb] = torch.where(inside, g - shift, 0.0).sum(dim=-1)
         out[1:, p0 : p0 + pb] = (d * torch.where(inside, g, 0.0)).sum(dim=-1) * scale
     return out
-
-
-willard_points_plain.calls = 0
 
 
 class GridPrep(NamedTuple):
@@ -379,26 +370,26 @@ def _unit(nvec):
     return nvec / torch.where(nn > 0, nn, torch.ones_like(nn))
 
 
-# which tier served the most recent `field_from_prep`: "x" | "plane" |
-# "brute" | "points" (`covered` failed)
-last_tier: str = "none"
+# `last_tier`: which tier served the most recent `field_from_prep`, "x" |
+# "plane" | "brute" | "points" (`covered` failed)
+__getattr__ = clock.tier_attr("field_from_prep", __name__)
 
 
+@clock.traced("dispatch:field_from_prep", device=True)
 def field_from_prep(prep: GridPrep, pos, box, grid, smoothlen=2.4):
     """(density (nx, ny, nz), gradient (3, nx, ny, nz)) from the grid kernel
     on `prep` where `prep.covered` holds, else from the points kernel over
     every atom at every grid point (willard_grid.py's caller,
     grids.py:94-104)."""
-    global last_tier
     (_, _, nx), (_, _, ny), (_, _, nz) = grid
     if prep.covered:
         out = willard_grid(prep.atoms, prep.starts, prep.w, box, grid, smoothlen)
-        last_tier = prep.tier
+        clock.serve_tier("field_from_prep", prep.tier)
         return out[0], out[1:]
     axes = grid_axes(grid, pos.device)
     pts = torch.stack(torch.meshgrid(*axes, indexing="ij")).reshape(3, -1)
     out = willard_points(pos.to(torch.float32).t().contiguous(), pts, box, smoothlen)
-    last_tier = "points"
+    clock.serve_tier("field_from_prep", "points")
     return out[0].reshape(nx, ny, nz), out[1:].reshape(3, nx, ny, nz)
 
 

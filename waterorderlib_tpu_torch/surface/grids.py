@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end
 from waterorderlib_tpu_torch.density import fields
 from waterorderlib_tpu_torch.ops import pairs
@@ -27,7 +28,7 @@ SASA_ROW_BLOCK = 4096  # grid points per block of the SASA metric
 
 
 def _f32(a, dev) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+    return clock.to_device(np.asarray(a), torch.float32, dev)
 
 
 def sasa_grid(heavy_pos, box, cutoff, n_bins: int = 50, device="cuda"):
@@ -66,6 +67,7 @@ def grid_spec(heavy_pos, box, n_bins: int = 81):
     return ((float(g[0]), float(spacing), len(g)),) * 3
 
 
+@clock.traced("call:density_grid")
 def density_grid(heavy_pos, wat_pos, box, level: float = 0.016, smoothlen: float = 2.4,
                  n_bins: int = 81, device="cuda", *, window=None, window_x=None):
     """Willard-Chandler instantaneous interface mesh

@@ -28,19 +28,19 @@ import math
 import numpy as np
 import torch
 
-from waterorderlib_tpu_torch.core import pbc
+from waterorderlib_tpu_torch.core import clock, pbc
 from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end
 from waterorderlib_tpu_torch.core.fp32 import xla_dot3
 from waterorderlib_tpu_torch.core.geometry import sphere_points
 from waterorderlib_tpu_torch.ops import pairs
 from waterorderlib_tpu_torch.ops.cuda import sasa as occlusion
-from waterorderlib_tpu_torch.utils import logging as _logging_mod
 
 CALC_PAIR_BUDGET = 1 << 22  # (point, atom) pairs per block of sasa_calc
 VOXEL_BLOCK = 4096  # voxels per block of sphere_volumes, as the JAX package
 
-# which tier served the most recent sasa_per_atom call: "topk" | "brute"
-last_tier: str = "none"
+# `last_tier`: which tier served the most recent sasa_per_atom call, "topk"
+# | "brute" (the registry's `tier:sasa_per_atom:*`)
+__getattr__ = clock.tier_attr("sasa_per_atom", __name__)
 
 
 def _areas(radii, n_vis, p: int):
@@ -108,10 +108,7 @@ def occluder_slots(pos, radii, box, nl: pairs.NeighborList):
     return occ.contiguous(), (radii * radii)[idx].contiguous(), nl.valid.contiguous()
 
 
-def _log_tier_once(tier: str) -> None:
-    _logging_mod.log_once(("sasa_per_atom", tier), "sasa_per_atom: occlusion tier=%s", tier)
-
-
+@clock.traced("call:sasa_per_atom")
 def sasa_per_atom(pos, radii, box=None, probe_radius: float = 1.4, n_points: int = 1000,
                   n_expose: int = 10, device="cuda"):
     """SASA per atom and surface flags (water_properties.py:59-74): golden
@@ -125,28 +122,27 @@ def sasa_per_atom(pos, radii, box=None, probe_radius: float = 1.4, n_points: int
     stage clock (`core.clock.stage_times`): H2D, top-K search, occluder
     gather, kernel, areas (and brute kernel where the certificate fails).
     """
-    global last_tier
     dev = resolve_device(device)
-    pts = torch.as_tensor(sphere_points(n_points), dtype=torch.float32, device=dev)
+    pts = clock.to_device(sphere_points(n_points), torch.float32, dev)
     if box is None:
         box = [-1.0, -1.0, -1.0]
-    pos = torch.as_tensor(np.asarray(pos), dtype=torch.float32, device=dev)
-    rad = torch.as_tensor(np.asarray(radii), dtype=torch.float32, device=dev) + probe_radius
-    box = torch.as_tensor(np.asarray(box), dtype=torch.float32, device=dev).reshape(3)
+    pos = clock.to_device(np.asarray(pos), torch.float32, dev)
+    rad = clock.to_device(np.asarray(radii), torch.float32, dev) + probe_radius
+    box = clock.to_device(np.asarray(box), torch.float32, dev).reshape(3)
     stage_end("H2D")
     n_vis, ok = _topk_counts(pos, rad, pts, box, 128, 256)
     if bool(ok):
-        last_tier = "topk"
+        clock.serve_tier("sasa_per_atom", "topk")
     else:
-        last_tier = "brute"
+        clock.serve_tier("sasa_per_atom", "brute")
         n_vis = occlusion.sasa_brute(pos, rad, pts, box)
         stage_end("brute kernel")
-    _log_tier_once(last_tier)
     areas, exposed = _areas(rad, n_vis, n_points), n_vis >= n_expose
     stage_end("areas")
     return areas, exposed
 
 
+@clock.traced("call:sasa_calc")
 def sasa_calc(heavy_pos, box, vdw_radii, sol_radius: float = 1.4, n_points: int = 100,
               device="cuda"):
     """surface_library.py:394-423 variant: insertion points at (vdW_i +
@@ -159,11 +155,11 @@ def sasa_calc(heavy_pos, box, vdw_radii, sol_radius: float = 1.4, n_points: int 
     parity.
     """
     dev = resolve_device(device)
-    heavy = torch.as_tensor(np.asarray(heavy_pos), dtype=torch.float32, device=dev)
-    boxv = torch.as_tensor(np.asarray(box), dtype=torch.float32, device=dev).reshape(3)
-    vdw = torch.as_tensor(np.asarray(vdw_radii), dtype=torch.float32, device=dev)
+    heavy = clock.to_device(np.asarray(heavy_pos), torch.float32, dev)
+    boxv = clock.to_device(np.asarray(box), torch.float32, dev).reshape(3)
+    vdw = clock.to_device(np.asarray(vdw_radii), torch.float32, dev)
     n = heavy.shape[0]
-    pts = torch.as_tensor(sphere_points(n_points), dtype=torch.float32, device=dev)
+    pts = clock.to_device(sphere_points(n_points), torch.float32, dev)
     ins = heavy[:, None, :] + (vdw + sol_radius)[:, None, None] * pts[None, :, :]
     vdw_sq = vdw * vdw
     idx = torch.arange(n, device=dev)

@@ -39,11 +39,13 @@ the kernels' wrappers run their plain versions.
 from __future__ import annotations
 
 import itertools
+from collections.abc import Mapping
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end
 from waterorderlib_tpu_torch.core.fp32 import sqrt_f32
 from waterorderlib_tpu_torch.ops.cuda import voronoi_cells as vcells
@@ -65,17 +67,59 @@ WIDE_TIERS = ((40, 96), (48, 96), (64, 128), (96, 192), (128, 256))
 # bytes of clip-builder intermediates per block of rows
 CLIP_BLOCK_BYTES = {"cuda": 1 << 32, "cpu": 1 << 27}
 
-# per (k, k_search) tier since the last clear: the search form that served
-# it, launches of its search, rows searched, rows certified there; and
-# "host": rows closed on the host, of them by a full host search
-tier_stats: dict = {}
 
 
-def _count(key, **add):
-    """Add counts (numbers) to, or set labels (strings) in, tier_stats[key]."""
-    entry = tier_stats.setdefault(key, {})
-    for name, v in add.items():
-        entry[name] = v if isinstance(v, str) else entry.get(name, 0) + v
+class _TierStats(Mapping):
+    """`tier_stats`: per (k, k_search) tier since the last `clear()`, the
+    search form and the builder that served it, launches of its search,
+    rows searched (bucket padding included), rows certified there; and
+    "host": rows closed on the host, of them by a full host search. The
+    numbers read the registry's counters `voronoi:<k>x<k_search>:<name>`
+    and `voronoi:host:<name>` (core/clock.py) from the last clear on."""
+
+    def __init__(self):
+        self._entries: dict = {}  # key -> {name: label string or counter name}
+        self._base: dict = {}  # counter totals at the last clear
+
+    def add(self, key, **add):
+        """Add counts (numbers) to, or set labels (strings) in, self[key]."""
+        entry = self._entries.setdefault(key, {})
+        tag = "host" if key == "host" else f"{key[0]}x{key[1]}"
+        for name, v in add.items():
+            if isinstance(v, str):
+                entry[name] = v
+            else:
+                entry.setdefault(name, f"voronoi:{tag}:{name}")
+                clock.count(entry[name], v)
+
+    def clear(self) -> None:
+        self._entries.clear()
+        self._base = clock.totals()
+
+    def __getitem__(self, key):
+        return {name: v if name in ("form", "cells") else clock.total(v) - self._base.get(v, 0)
+                for name, v in self._entries[key].items()}
+
+    def __iter__(self):
+        return iter(self._entries)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __repr__(self) -> str:
+        return repr(dict(self.items()))
+
+
+tier_stats = _TierStats()
+_count = tier_stats.add
+
+
+def _count_escalation(searched: int, certified: int) -> None:
+    """Rows an escalation tier searched (bucket padding included) and
+    certified: the registry's `voronoi:escalation:*`, summed over the tiers
+    after the first."""
+    clock.count("voronoi:escalation:rows", searched)
+    clock.count("voronoi:escalation:certified", certified)
 
 
 def _not_ported(mesh=None):
@@ -154,9 +198,9 @@ def _box(box_l, points):
 def _as_points(points, device) -> torch.Tensor:
     """Coordinates as a tensor on `device`: float64 stays float64 (CPU
     only: the kernel takes float32), everything else is float32."""
-    t = torch.as_tensor(points)
-    dtype = torch.float64 if t.dtype == torch.float64 else torch.float32
-    return t.to(device=device, dtype=dtype).contiguous()
+    src = points if torch.is_tensor(points) else np.asarray(points)
+    dtype = torch.float64 if torch.as_tensor(src).dtype == torch.float64 else torch.float32
+    return clock.to_device(src, dtype, device).contiguous()
 
 
 def mirror_points_device(points, box_l):
@@ -921,13 +965,13 @@ def _cells_blocked(centers, ext, k, k_search, row_block, eps, win=None, cg=None,
             out[key] = torch.zeros((F * nc, *v.shape[1:]), dtype=v.dtype, device=v.device)
             out[key][rows] = v
     out = {key: v.reshape(F, nc, *v.shape[1:]) for key, v in out.items()}
+    _count((k, k_search), form=form, cells=impl, launches=1, rows=F * nc)
     if stage:
         stage_end(f"{stage} cells")
     out["nbr_dist"] = dist
     out["nbr_idx"] = idx
     out["nbr_valid"] = valid
     out["win_covered"] = win_cov
-    _count((k, k_search), form=form, cells=impl, launches=1, rows=F * nc)
     return out
 
 
@@ -1175,6 +1219,7 @@ def _escalate_and_close(points, box_l, num, vol, area, cert, tier_rows, tiers_re
         )
         tier_rows.append((bad_idx, out2))
         c2 = _np(out2["certified"])
+        _count_escalation(len(_bucket_pad(bad_idx)[0]), int(c2.sum()))
         fixed = bad_idx[c2]
         vol[fixed] = _np(out2["vol"]).astype(np.float64)[c2]
         area[fixed] = _np(out2["area"]).astype(np.float64)[c2]
@@ -1218,6 +1263,7 @@ def _host_close(points, box_l, num, rows, cert, vol, area, tier_rows, fallback_k
     _count("host", rows=len(bad), full_search=n_full)
 
 
+@clock.traced("dispatch:voronoi_volumes_hybrid", device=True)
 def voronoi_volumes_hybrid(
     points: np.ndarray,
     box_l: float,
@@ -1292,7 +1338,7 @@ def _tier1_frames_local(pb, bl, num, k, ks, row_block, eps, win, mb=0, cg=None,
         centers = pb[:, :num]
     else:
         padded, n_want = _bucket_pad(sel)
-        centers = pb[:, torch.as_tensor(padded, dtype=torch.long, device=pb.device)]
+        centers = pb[:, clock.to_device(padded, torch.long, pb.device)]
         real = (torch.arange(len(padded), device=pb.device) < n_want)[None].expand(F, -1)
         row_block = min(row_block, len(padded))
     out = _cells_blocked(centers, ext, k, ks, row_block, eps, win=win,
@@ -1368,8 +1414,8 @@ def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_res
         cg2 = None if is_last else _suggest_cellgrid(n_pts, box_min, ks2, s_factor=1.4)
         rb = min(256, bucket)
         res = _tier_subset_frames(
-            pb, bl, torch.as_tensor(rows_np, device=pb.device),
-            torch.as_tensor(real, device=pb.device), k2, ks2, rb, float(eps),
+            pb, bl, clock.to_device(rows_np, device=pb.device),
+            clock.to_device(real, device=pb.device), k2, ks2, rb, float(eps),
             win_t if win_t > 0 else None, cg2, cell_impl,
         )
         vol2, area2, cert2 = (_np(res[key]) for key in ("vol", "area", "certified"))
@@ -1391,6 +1437,7 @@ def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_res
             if faces is not None:
                 faces[t].append((fixed, fa2[t, :nb][c2], fn2[t, :nb][c2], ni2[t, :nb][c2]))
         _count((k2, ks2), certified=n_cert)
+        _count_escalation(F * bucket, n_cert)
     if last is not None and any(not cert_b[t].all() for t in range(F)):
         bad_rows, res = last
         nd, nidx, nvalid, wcov = (_np(res[key]) for key in (
@@ -1406,6 +1453,7 @@ def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_res
     return vol_b, area_b, cert_b, payload
 
 
+@clock.traced("dispatch:voronoi_volumes_hybrid_frames", device=True)
 def voronoi_volumes_hybrid_frames(
     pos_batch: np.ndarray,
     box_ls: np.ndarray,
@@ -1434,7 +1482,7 @@ def voronoi_volumes_hybrid_frames(
     F = pos_batch.shape[0]
     k0, ks0 = tiers[0][:2]
     pb = _as_points(pos_batch, dev)
-    bl = torch.as_tensor(box_ls, dtype=pb.dtype, device=dev)
+    bl = clock.to_device(box_ls, pb.dtype, dev)
     stage_end("H2D")
     eps, win, mb, cg = _batch_static_config(pos_batch, box_ls, k0, ks0, pb.dtype)
     out = _tier1_frames_local(pb, bl, num, k0, ks0, row_block, float(eps), int(win), mb, cg,
@@ -1510,6 +1558,7 @@ def _contacts_result(block, sel_rows, vol, area, num, dense: bool):
     return rows, atom_area, 2.0 * atom_area[0, sel_rows] - rows.sum(axis=1), atom_vol
 
 
+@clock.traced("dispatch:voronoi_contacts_hybrid", device=True)
 def voronoi_contacts_hybrid(
     points: np.ndarray,
     box_l: float,
@@ -1569,7 +1618,7 @@ def _contacts_frames(pos_batch, box_ls, num, rows, tiers, row_block, fallback_k,
     sel_rows = np.arange(num) if rows is None else np.asarray(rows, int)
     k0, ks0 = tiers[0][:2]
     pb = _as_points(pos_batch, dev)
-    bl = torch.as_tensor(box_ls, dtype=pb.dtype, device=dev)
+    bl = clock.to_device(box_ls, pb.dtype, dev)
     stage_end("H2D")
     eps, win, mb, cg = _batch_static_config(pos_batch, box_ls, k0, ks0, pb.dtype)
     out = _tier1_frames_local(pb, bl, num, k0, ks0, row_block, float(eps), int(win), mb, cg,

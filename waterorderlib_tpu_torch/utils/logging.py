@@ -10,16 +10,13 @@ import logging
 
 _LOGGER = None
 
-# Process-lifetime seen-set for log_once. Dispatch-tier call sites alias
-# this set module-locally (e.g. drivers.orderparams._logged_tiers) so tests
-# can clear/inspect it; keys are namespaced tuples like (driver, tier).
+# Process-lifetime seen-set for log_once; keys are namespaced tuples.
 _LOGGED_ONCE: set = set()
 
 
 def log_once(key, msg: str, *args, level: str = "info") -> bool:
-    """Emit a log record once per key per process — used by kernel-dispatch
-    tier logging so steady-state driver loops don't spam. Returns whether
-    the record was emitted."""
+    """Emit a log record once per key per process, so that steady-state
+    driver loops don't repeat it. Returns whether the record was emitted."""
     if key in _LOGGED_ONCE:
         return False
     _LOGGED_ONCE.add(key)
