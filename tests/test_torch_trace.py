@@ -128,16 +128,22 @@ def test_host_prep_spans_and_their_bytes(run, system):
     call = calls[0]
     by_id = {s.id: s for s in call.spans}
     assert call.named("topology")
-    for s in call.named("topology") + call.named("gather") + call.named("h2d"):
+    for s in (call.named("topology") + call.named("gather") + call.named("device_gather")
+              + call.named("h2d")):
         assert by_id[s.parent].name.startswith(("stage:", "dispatch:")), s.name
     h2d = sum(s.counts.get("h2d_bytes", 0) for s in call.named("h2d"))
     assert h2d == call.counts["h2d_bytes"]
     f, n = traj.n_frames, top.n_atoms
     nw = len(top.get_wat_inds()[0])
     if name == "tet":
-        # centers (F, Nw, 3) f32, boxes (F, 3) f32, masks (F, 2, Nw) bool
-        assert call.counts["gather_bytes"] == f * nw * 12
-        assert h2d == f * nw * 12 + f * 12 + f * 2 * nw
+        # the oxygens' atom span of the frames, boxes (F, 3) f32, masks (F, 2, Nw)
+        # bool, the centers' int64 indices; the device gathers (F, Nw, 3) f32
+        assert "gather_bytes" not in call.counts
+        assert call.counts["device_gather_bytes"] == f * nw * 12
+        # the rows fill a third of a frame: a chunk a frame, atoms 0 to the last oxygen
+        assert call.counts["block_bytes"] == f * (3 * nw - 2) * 12
+        assert len(call.named("device_gather")) == f
+        assert h2d == call.counts["block_bytes"] + f * 12 + f * 2 * nw + nw * 8
     elif name == "hb":
         # every atom (F, N, 3) f32, boxes, and the water triplets' int64 indices
         triplets = top.get_hb_inds(np.array([], int), top.get_wat_inds()[0])[0]
@@ -149,7 +155,7 @@ def test_host_prep_spans_and_their_bytes(run, system):
         heavy = f * nw * 12
         assert call.counts["gather_bytes"] == heavy
         assert call.named("h2d")[0].counts["h2d_bytes"] == heavy
-    assert call.named("gather") if name != "hb" else not call.named("gather")
+    assert call.named("gather") if name == "voronoi" else not call.named("gather")
 
 
 def test_registry_backs_the_legacy_counts(run):
@@ -244,7 +250,7 @@ def test_export_chrome_and_the_cli_option(system, tmp_path):
         if e is not root:
             p = ids[e["args"]["parent"]]
             assert p["ts"] <= e["ts"] + 1e-3 and e["ts"] + e["dur"] <= p["ts"] + p["dur"] + 1e-3
-    assert {e["name"] for e in spans} >= {"topology", "gather", "h2d", "stage:host gather",
+    assert {e["name"] for e in spans} >= {"topology", "device_gather", "h2d", "stage:host gather",
                                           "dispatch:order_param_q_certified", "kernel:q_window"}
     assert os.path.exists(os.path.join(tmp_path, "qDistribution_0.txt"))
 

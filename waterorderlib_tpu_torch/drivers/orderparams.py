@@ -2,8 +2,9 @@
 waterorderlib_tpu.drivers.orderparams): `tet_order_calc`, `three_body_calc`,
 `lsi_calc` and `hex_order_calc`.
 
-The whole trajectory moves to the device once as an (F, Nc, 3) float32
-tensor of centers; each driver computes its per-center values for every
+The centers' atom span of the trajectory moves to the device in chunks of
+frames, and the device gathers the (F, Nc, 3) float32 center rows from it
+(`_center_rows`); each driver computes its per-center values for every
 center by a certified kernel dispatch (ops/cuda/qtet2.py, angles.py,
 lsi.py, psi6.py), and sub-populations are boolean masks over the center axis, so
 population statistics are masked reductions over the same values. Each
@@ -127,15 +128,55 @@ def _as_numpy(out):
     return out.cpu().numpy()
 
 
+def _frame_spans(n_frames: int, frame_bytes: int, out_bytes: int) -> list:
+    """Frame ranges [f0, f1) of near-equal size, as few as hold at most
+    `out_bytes` of `frame_bytes` a frame each, and at least one frame."""
+    per = max(1, out_bytes // frame_bytes)
+    size = -(-n_frames // -(-n_frames // per))
+    return [(f0, min(f0 + size, n_frames)) for f0 in range(0, n_frames, size)]
+
+
+def _center_rows(positions, inds, lo, hi, device) -> torch.Tensor:
+    """`positions[:, inds, :]` as a float32 (F, Nc, 3) tensor on `device`,
+    gathered there: the host hands the device the centers' atom span
+    [lo, hi) of each chunk of frames, as one run of a C-contiguous array's
+    memory (no host copy) or as a row copy of a strided one; the device
+    gathers rows `inds - lo` of each chunk.
+
+    A chunk holds at most the output's bytes, so the device holds no more
+    than twice the rows. Counts `block_bytes` (the memory handed over) and
+    `device_gather_bytes` (the rows made) in `device_gather` spans."""
+    f, n_atoms = positions.shape[:2]
+    out = torch.empty((f, len(inds), 3), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    idx = clock.to_device(inds - lo, torch.int64, device)
+    whole = positions.flags.c_contiguous
+    step = 3 * (n_atoms if whole else hi - lo)  # elements from frame to frame
+    flat = positions.reshape(-1) if whole else None
+    for f0, f1 in _frame_spans(f, step * out.element_size(), out.nbytes):
+        if whole:
+            run = flat[(f0 * n_atoms + lo) * 3:((f1 - 1) * n_atoms + hi) * 3]
+        else:
+            run = np.ascontiguousarray(positions[f0:f1, lo:hi]).reshape(-1)
+        # float64 frames are cast as they cross, which commutes with the gather
+        block = clock.to_device(run, torch.float32, device)
+        with clock.span("device_gather", device=True):
+            view = block.as_strided((f1 - f0, hi - lo, 3), (step, 3, 1))
+            rows = out[f0:f1]
+            torch.index_select(view, 1, idx, out=rows)
+            clock.count("block_bytes", block.nbytes)
+            clock.count("device_gather_bytes", rows.nbytes)
+        del view, block  # free this chunk before the next one is allocated
+    return out
+
+
 def _frames_in(positions, boxes, inds, sub_inds, n_pops, row_map, device):
     """Center rows (F, Nc, 3), boxes (F, 3) and population masks of a frame
     batch on the device."""
-    with clock.span("gather"):
-        pos_np = positions[:, inds, :]
-        clock.count("gather_bytes", pos_np.nbytes)
+    lo, hi = (int(inds.min()), int(inds.max()) + 1) if len(inds) else (0, 0)
     stage_end("host gather")
-    # trajectories may hold float64 frames; the kernels take float32
-    pos = clock.to_device(pos_np, torch.float32, device)
+    pos = _center_rows(positions, inds, lo, hi, device)
     boxes_t = clock.to_device(boxes, torch.float32, device)
     stage_end("H2D")
     masks = _masks_tensor(sub_inds, pos.shape[0], n_pops, row_map, len(inds), device)
