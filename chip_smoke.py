@@ -29,9 +29,11 @@ Phases (each raises on failure; nothing is caught):
    windows of 20
    columns, two of them outside the columns (NaN rows), and a 16-member
    cluster in one shell of a 16,384-water box (the split kernel equal to
-   its plain version on it), where `lsi_certified` must
-   leave the split tier for the K=24 kernel (without the cluster no row of
-   that box is incomplete); both H-bond kernels on 4096 waters x 8 frames
+   its plain version on it), where `lsi_certified` must keep the split
+   tier, redo the incomplete rows through the split kernel's escalation
+   form and run no K=24 kernel, its result equal to its plain versions'
+   on the CPU (without the cluster no row of that box is incomplete);
+   both H-bond kernels on 4096 waters x 8 frames
    of `make_water_box` (water-water, the JAX package's asymmetric 37-donor
    sets, a third of the stored atoms shifted by +/-L, and pairs planted at
    exactly the cut and at exactly half a box edge in x, y and z, also in a
@@ -2962,8 +2964,9 @@ def main() -> int:
     del lat, lat_b, narrow, got, want
 
     # count certificate: a 16-member cluster in one 3.7 A shell of a box on
-    # the split tier; the split kernel flags it and the K=24 kernel serves.
-    # Without the cluster no row of the box is incomplete
+    # the split tier; the split kernel flags its rows, the escalation form
+    # redoes them and the split tier serves. Without the cluster no row of
+    # the box is incomplete
     cl_np, cl_boxes_np = _split_traj(N_SPLIT, 1, seed=7)
     clean = torch.from_numpy(cl_np.copy()).to(dev)
     incomplete_clean = int(s_k(*_lsi_split_args(clean, torch.from_numpy(cl_boxes_np).to(dev))[3])
@@ -2982,20 +2985,17 @@ def main() -> int:
     before = (l_k.launches, s_k.launches)
     got = lsi.lsi_certified(cl, cl_boxes)
     ran = (l_k.launches - before[0], s_k.launches - before[1])
-    # the slab form's pad copies hold coordinates shifted by +/-L, so its
-    # imaged displacements round apart from the brute form's: the two forms
-    # agree to the reference tolerance, not bit for bit
-    want = l_p(*_lsi_brute_args(cl, cl_boxes, False))
-    err_cl = float((got[0] - want[0]).abs().max())
+    # the same dispatch on CPU tensors: its plain versions, the same prep
+    want = lsi.lsi_certified(cl.cpu(), cl_boxes.cpu())
+    same = all(torch.equal(torch.nan_to_num(g.cpu(), 7.0), torch.nan_to_num(w, 7.0))
+               for g, w in zip(got, want))
     print(f"[kernel] 16-member cluster, {N_SPLIT} waters: split rows incomplete={incomplete} "
           f"(0 without the cluster), "
-          f"tier={lsi.last_tier}, launches K=24/split={ran}, max|d lsi| vs plain K=24 brute="
-          f"{err_cl:.3e}", flush=True)
-    _check(incomplete > 0 and lsi.last_tier == "slab" and ran == (1, 1),
-           "the count certificate did not move the cluster box to the K=24 kernel")
-    _check(err_cl <= LSI_REF_TOL and bool((got[1] == want[1]).all())
-           and bool((got[2] == want[2]).all()),
-           f"cluster box: K=24 slab result differs from its plain brute form ({err_cl})")
+          f"tier={lsi.last_tier}, launches K=24/split (with the escalation)={ran}, equal to the "
+          f"plain dispatch on the CPU: {same}", flush=True)
+    _check(incomplete > 0 and lsi.last_tier == "slab-split" and ran == (0, 2),
+           "the cluster box left the split tier or its escalation did not run")
+    _check(same, "cluster box: the split tier with its escalation differs from its plain versions")
     del sh, cl, cl_boxes, clean, got, want
 
     # both H-bond kernels on 4096 waters x 8 frames of make_water_box: the

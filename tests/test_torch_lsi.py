@@ -23,7 +23,9 @@ from waterorderlib_tpu.ops.pallas import lsi_kernel as jlk
 from waterorderlib_tpu.ops.pallas import lsi_slab2 as jls
 from waterorderlib_tpu.ops.pallas import slab as jslab
 from waterorderlib_tpu.order import lsi as jlsi
+from reference import refimpl
 from waterorderlib_tpu_torch import interop
+from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.ops.cuda import lsi as tl
 from waterorderlib_tpu_torch.ops.cuda import slab, window
 from waterorderlib_tpu_torch.order import lsi as tlsi
@@ -192,9 +194,11 @@ def _cluster_box():
 def test_split_count_certificate_vetoes(monkeypatch):
     """The cluster overfills the split kernel's 12 in-shell slots: its rows
     come back incomplete (on this box the JAX kernel's `covered` goes False,
-    tests/test_pallas_kernels.py:289-313), and the certified dispatch, told
-    by the tier rule to try the split kernel, serves the K=24 kernel
-    instead."""
+    tests/test_pallas_kernels.py:289-313). The certified dispatch, told by
+    the tier rule to take the split tier, keeps it: the incomplete rows are
+    redone by the split kernel's escalation form, no K=24 kernel runs, and
+    every row equals the float64 definition (refimpl: valid flags and counts
+    exactly, LSI to TOL), where the JAX package serves the K=24 result."""
     pos, boxes = _cluster_box()
     args = window.brute_form(lambda *a: a, T(pos), T(boxes), 128, raw=True)
     incomplete = tl.lsi_split_window(*args[:8], args[2], pos.shape[1], 0.0, HIGH, HIGH * HIGH,
@@ -203,12 +207,17 @@ def test_split_count_certificate_vetoes(monkeypatch):
 
     monkeypatch.setattr(tl, "split_tier", lambda *a: True)
     before = (tl.lsi_split_window_plain.calls, tl.lsi_window_plain.calls)
+    rows = clock.total("lsi:escalation:rows")
     got = tl.lsi_certified(T(pos), T(boxes))
-    assert tl.last_tier in ("slab", "brute")
-    assert (tl.lsi_split_window_plain.calls, tl.lsi_window_plain.calls) == (before[0] + 1,
-                                                                           before[1] + 1)
-    want = jlsi.lsi(pos[0], pos[0], boxes[0], 0.0, HIGH, k=24)
-    _assert_lsi(tuple(o[0] for o in got), want.lsi, want.valid, want.count)
+    assert tl.last_tier == "slab-split"
+    assert (tl.lsi_split_window_plain.calls, tl.lsi_window_plain.calls) == (before[0] + 2,
+                                                                           before[1])
+    assert clock.total("lsi:escalation:rows") - rows == int(incomplete.sum())
+    x, b = pos[0].astype(np.float64), boxes[0].astype(np.float64)
+    vals, valid, counts = refimpl.lsi(x, x, b, 0.0, HIGH)
+    np.testing.assert_array_equal(got[1][0].numpy(), valid)
+    np.testing.assert_array_equal(got[2][0].numpy(), counts)
+    np.testing.assert_allclose(got[0][0].numpy()[valid], vals, rtol=0, atol=TOL)
 
 
 def test_hand_placed_center_tiers_differ_each_as_its_jax_tier(frames, pallas):

@@ -14,7 +14,8 @@ from waterorderlib_tpu_torch import __main__ as cli
 from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.drivers import hbonds_driver, orderparams, voronoi_driver
 from waterorderlib_tpu_torch.io.synthetic import make_water_box
-from waterorderlib_tpu_torch.ops.cuda import hbond, qtet2, voronoi_cells, voronoi_topk
+from waterorderlib_tpu_torch.io.trajectory import Trajectory
+from waterorderlib_tpu_torch.ops.cuda import hbond, lsi, qtet2, voronoi_cells, voronoi_topk
 from waterorderlib_tpu_torch.surface import voronoi_device
 
 torch.set_num_threads(1)
@@ -284,3 +285,35 @@ def test_legacy_counts_take_a_reset():
     assert qtet2.q_window.__name__ == "q_window" and callable(qtet2.q_window)
     with pytest.raises(AttributeError):
         qtet2.no_such_name  # noqa: B018
+
+
+def test_lsi_escalation_span_and_counters(monkeypatch, tmp_path):
+    """`lsi_calc` on the split tier, on 512 waters with 40 of them moved
+    (whole) to 1.0-3.6 A of the first oxygen: rows overfill the split
+    kernel's 12 in-shell slots and some the escalation's first rung of 32.
+    The call records a `lsi:escalation` span under its dispatch, holding
+    the kernel spans of the redo, and counts the rows redone
+    (`lsi:escalation:rows`) and those that took the last rung
+    (`lsi:escalation:last`) on the call."""
+    top, traj = make_water_box(512, n_frames=1, seed=9)
+    wat = top.get_wat_inds()[0]
+    pos = traj.positions.copy()
+    rs = np.random.RandomState(9)
+    dirs = rs.normal(size=(40, 3))
+    off = dirs / np.linalg.norm(dirs, axis=1, keepdims=True) * rs.uniform(1.0, 3.6, (40, 1))
+    movers = wat[-40:]
+    pos[0, movers[:, None] + np.arange(3)] += (pos[0, wat[0]] + off - pos[0, movers])[:, None]
+    monkeypatch.setattr(lsi, "split_tier", lambda *a: True)
+    clock.recorded_calls()
+    with clock.stage_times():
+        orderparams.lsi_calc(top, Trajectory(pos, traj.boxes), output_dir=str(tmp_path),
+                             device="cpu")
+    (call,) = clock.recorded_calls()
+    assert lsi.last_tier == "slab-split"
+    assert call.counts["lsi:escalation:rows"] >= 40 and call.counts["lsi:escalation:last"] >= 1
+    (esc,) = call.named("lsi:escalation")
+    (disp,) = call.named("dispatch:lsi_certified")
+    assert esc.parent == disp.id and esc.counts["lsi:escalation:last"] >= 1
+    kernels = [s for s in call.named("kernel:lsi_split_window") if s.parent == esc.id]
+    assert len(kernels) == 2  # the first rung and the last
+    assert esc.device_ms is None  # on the CPU no CUDA events

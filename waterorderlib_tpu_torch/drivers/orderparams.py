@@ -458,7 +458,11 @@ def lsi_calc(
     lsiDistribution_j.txt per population (500 bins over [0, 0.3] A^2).
 
     Each system size takes the JAX package's LSI tier (ops/cuda/lsi.py
-    `split_tier`), so both packages give the same values. `chunk_frames`
+    `split_tier`). Both packages give the same values, but for rows with
+    more than 12 waters within `high_cut` on the split tier (~8.4k to
+    ~140k waters at water density): the port redoes them with the
+    definition's next-shell pick, the JAX package takes its K = 24 pick,
+    which can miss a next-shell atom beyond the 24 nearest. `chunk_frames`
     streams the trajectory as in tet_order_calc (the JAX `lsi_calc` has no
     checkpoint). `row_block` is accepted for the JAX package's signature;
     the kernel path has no row blocks. The kernels keep the 24 nearest

@@ -16,16 +16,24 @@
 //     distance among ALL (high, high+3.7] candidates of a wide window (the
 //     first column among equal ones) with its imaged distance. A row whose
 //     in-shell count exceeds 12 is flagged `incomplete`.
+//   lsi_split_redo_launch: the split kernel's escalation form, which the
+//     JAX package does not have: the listed (frame, row) pairs alone, over
+//     the same two windows, with k_in in-shell slots, so that a row the split
+//     kernel flags is redone, not served by the K = 24 kernel.
 // The two differ in the next-shell pick (top 24 against all candidates),
 // so they give different LSI where a raw-nearer candidate lies beyond the
-// 24 nearest; the dispatch (ops/cuda/lsi.py) keeps the JAX package's tier
-// for each system size.
+// 24 nearest. The dispatch (ops/cuda/lsi.py) takes the JAX package's tier
+// for each system size; on the split tier every row gets the definition's
+// pick, the overfull ones through the escalation form, where the JAX
+// package falls back to its K = 24 pick.
 //
 // Outputs per row: lsi (F, R) f32, the population variance of the sorted
 // in-shell distance gaps plus the final (next - last in-shell) gap, 0 where
 // invalid; valid (F, R) bool, >= 2 in-shell neighbors and a next-shell
 // candidate; count (F, R) int32, the number of gaps (in-shell count) where
-// valid, else 0; the split kernel also writes incomplete (F, R) bool.
+// valid, else 0; the split kernel also writes incomplete (F, R) bool. The
+// escalation form writes the same per listed pair (M,), and shell (M,)
+// int32, the pair's full in-shell count.
 //
 // The contract is nbr_window.cu's (ops/cuda/window.py): rows and columns
 // (F, 3, n) with unit stride along n, one window start per row tile of
@@ -112,6 +120,12 @@
 //   thread needs 64. kRowsS 32 / 64 / 128: 5.025 / 4.894 / 4.931 ms a
 //   64-frame launch at 16,384 rows (ab_voronoi.py --mappings; H100 80GB
 //   HBM3, 700 W).
+// The escalation form (lsi_split_redo_kernel) serves the few rows the split
+// kernel flags (~0.5 a frame on a 16,384-water jittered lattice), one warp a
+// row, its columns read from device memory (L2) by the lanes in turn: the
+// in-shell values appended by ballot into k_in slots, ranked into order,
+// the epilogue in one lane over k_in + 1 slots in the split kernel's
+// layout, so that it equals the plain version at the same k_in bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -129,6 +143,8 @@ constexpr int kRows24 = kWarps24 * kRowsPerWarp;
 static_assert(128 % kRows24 == 0, "a K = 24 block's rows must lie in one 128-row tile");
 constexpr int kRowsS = 64;  // rows a block of the split kernel, one a thread
 static_assert(128 % kRowsS == 0, "a split block's rows must lie in one 128-row tile");
+constexpr int kWarpsR = 4;  // pairs a block of the escalation form, one a warp
+constexpr int kEscS = 32;   // in-shell slots the escalation form holds in shared memory
 
 // a value whose square is the compare-select minimum image's square,
 // mi(d)^2 with mi(d) = d - L if d > L/2, then + L if below -L/2, bit for
@@ -529,6 +545,174 @@ lsi_split_kernel(const float* __restrict__ rows, long long row_fs, long long row
   incomplete_out[o] = count > kIn;
 }
 
+// lsi_epilogue<k_in + 1> over the split kernel's slots with k_in in-shell
+// slots, read from memory: slot j < m holds the root of sq[j] (sq: the
+// in-shell squared distances, ascending), slots [m, k_in) are empty, slot
+// k_in holds the next-shell pick (its imaged distance nd, raw squared
+// distance nraw; nfin: there is one). The same operations in the same order.
+__device__ void lsi_epilogue_mem(const float* sq, int m, int k_in, float nd, float nraw,
+                                 bool nfin, float high, float* var_out, bool* ok_out,
+                                 int* n_near_out) {
+  const float inf = __int_as_float(0x7f800000);
+  auto dist = [&](int j) { return j < m ? sqrtf(sq[j]) : (j < k_in ? inf : nd); };
+  auto fin = [&](int j) { return j < m || (j == k_in && nfin); };
+  int n_near = 0;
+  float best_raw = inf, next_dist = 0.f;
+  bool has_next = false;
+  for (int j = 0; j <= k_in; ++j) {
+    const float d = dist(j);
+    const float r = j < k_in ? inf : nraw;
+    n_near += (fin(j) && d <= high) ? 1 : 0;
+    const bool isnext = fin(j) && d > high;
+    const bool better = isnext && r < best_raw;
+    best_raw = better ? r : best_raw;
+    next_dist = better ? d : next_dist;
+    has_next = has_next || isnext;
+  }
+  const int last = n_near > 1 ? n_near - 1 : 0;
+  const float final_gap = next_dist - dist(last);
+  const float denom = (float)(n_near > 1 ? n_near : 1);
+  float sum_gaps = final_gap;
+  for (int j = 0; j < k_in && j < n_near - 1; ++j) {
+    if (dist(j + 1) < inf) sum_gaps = sum_gaps + (dist(j + 1) - dist(j));
+  }
+  const float mean = sum_gaps / denom;
+  const float t = final_gap - mean;
+  float var = t * t;
+  for (int j = 0; j < k_in && j < n_near - 1; ++j) {
+    if (dist(j + 1) < inf) {
+      const float g = (dist(j + 1) - dist(j)) - mean;
+      var = var + g * g;
+    }
+  }
+  *var_out = var / denom;
+  *ok_out = n_near > 1 && has_next;
+  *n_near_out = n_near;
+}
+
+// The escalation form of the split kernel: the listed (frame, row) pairs
+// alone, one warp a pair, with k_in in-shell slots (shared memory up to
+// kEscS, else 2 * k_in floats of `scratch` a pair). Over the same two
+// windows as the split launch, the lanes scan the hull of both (column
+// c0 + lane, c0 + lane + 32, ... from device memory), each column's imaged
+// dsq taken once: in-shell values of the narrow window are appended to the
+// pair's buffer by ballot (their full count kept), and the wide window's
+// annulus candidates give the least (raw dsq bits << 32) | column key, the
+// first column among equal raw distances, its imaged dsq recomputed from
+// its column as in the split kernel. The buffer is ranked into ascending
+// order (values only: equal ones need no order) and lane 0 runs the
+// epilogue. A pair whose in-shell count exceeds k_in writes NaN, not valid,
+// count 0 and its count in `shell`; a window outside the columns NaN and
+// shell -1.
+__global__ void __launch_bounds__(32 * kWarpsR)
+lsi_split_redo_kernel(const float* __restrict__ rows, long long row_fs, long long row_cs,
+                      int n_rows, const float* __restrict__ cols, long long col_fs,
+                      long long col_cs, int n_cols, const int* __restrict__ starts, int w,
+                      const float* __restrict__ boxes, int row_tile,
+                      const float* __restrict__ raw_rows, long long rr_fs, long long rr_cs,
+                      const float* __restrict__ raw_cols, long long rc_fs, long long rc_cs,
+                      const int* __restrict__ starts_wide, int w_wide,
+                      const long long* __restrict__ pairs, int n_pairs, int k_in,
+                      float* __restrict__ scratch, float low_sq, float high, float high_sq,
+                      float outer_sq, float* __restrict__ lsi_out, bool* __restrict__ valid_out,
+                      int* __restrict__ count_out, int* __restrict__ shell_out) {
+  __shared__ float s_buf[kWarpsR][2][kEscS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long p = (long long)blockIdx.x * kWarpsR + warp;
+  if (p >= n_pairs) return;  // the whole warp
+  const long long pr = pairs[p];
+  const int f = (int)(pr / n_rows);
+  const int row = (int)(pr - (long long)f * n_rows);
+  const int tile = row / row_tile;
+  const int start_n = starts[tile], start_w = starts_wide[tile];
+  const float inf = __int_as_float(0x7f800000);
+  if (start_n < 0 || start_n > n_cols - w || start_w < 0 || start_w > n_cols - w_wide) {
+    if (lane == 0) {
+      lsi_out[p] = nanf("");
+      valid_out[p] = false;
+      count_out[p] = 0;
+      shell_out[p] = -1;
+    }
+    return;
+  }
+  float* buf = k_in <= kEscS ? s_buf[warp][0] : scratch + p * 2 * k_in;
+  float* sorted = k_in <= kEscS ? s_buf[warp][1] : buf + k_in;
+  const float bx = boxes[3 * f + 0], by = boxes[3 * f + 1], bz = boxes[3 * f + 2];
+  const float* r = rows + f * row_fs + row;
+  const float xr = r[0], yr = r[row_cs], zr = r[2 * row_cs];
+  const float* rr = raw_rows + f * rr_fs + row;
+  const float rxr = rr[0], ryr = rr[rr_cs], rzr = rr[2 * rr_cs];
+  const float* cx = cols + f * col_fs;
+  const float* rcx = raw_cols + f * rc_fs;
+
+  const int lo = min(start_n, start_w), hi = max(start_n + w, start_w + w_wide);
+  int count = 0;
+  u64 best = kSent;
+  for (int c0 = lo; c0 < hi; c0 += 32) {
+    const int col = c0 + lane;
+    bool shell = false;
+    float dsq = 0.f;
+    if (col < hi) {
+      const float ex = mi_abs(cx[col] - xr, bx);
+      const float ey = mi_abs(cx[col_cs + col] - yr, by);
+      const float ez = mi_abs(cx[2 * col_cs + col] - zr, bz);
+      dsq = dot3(ex, ex, ey, ey, ez, ez);
+      shell = (unsigned)(col - start_n) < (unsigned)w && dsq > low_sq && dsq <= high_sq;
+      if ((unsigned)(col - start_w) < (unsigned)w_wide && dsq > high_sq && dsq <= outer_sq) {
+        const float fx = rcx[col] - rxr, fy = rcx[rc_cs + col] - ryr,
+                    fz = rcx[2 * rc_cs + col] - rzr;
+        const float rsq = dot3(fx, fx, fy, fy, fz, fz);
+        if (rsq < inf) best = umin64(best, ((u64)__float_as_uint(rsq) << 32) | (unsigned)col);
+      }
+    }
+    const unsigned hit = __ballot_sync(kFull, shell);
+    const int at = count + __popc(hit & ((1u << lane) - 1u));
+    if (shell && at < k_in) buf[at] = dsq;
+    count += __popc(hit);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) best = umin64(best, __shfl_xor_sync(kFull, best, d));
+  __syncwarp();
+  if (count > k_in) {
+    if (lane == 0) {
+      lsi_out[p] = nanf("");
+      valid_out[p] = false;
+      count_out[p] = 0;
+      shell_out[p] = count;
+    }
+    return;
+  }
+  for (int i = lane; i < count; i += 32) {
+    const float v = buf[i];
+    int rank = 0;
+    for (int j = 0; j < count; ++j) {
+      const float u = buf[j];
+      rank += (u < v || (u == v && j < i)) ? 1 : 0;
+    }
+    sorted[rank] = v;
+  }
+  __syncwarp();
+  if (lane != 0) return;
+  const bool nfin = best != kSent;
+  float nd = inf, nraw = inf;
+  if (nfin) {
+    const int j = (int)(unsigned)best;
+    const float ex = mi_abs(cx[j] - xr, bx);
+    const float ey = mi_abs(cx[col_cs + j] - yr, by);
+    const float ez = mi_abs(cx[2 * col_cs + j] - zr, bz);
+    nd = sqrtf(dot3(ex, ex, ey, ey, ez, ez));
+    nraw = __uint_as_float((unsigned)(best >> 32));
+  }
+  float var;
+  bool ok;
+  int n_near;
+  lsi_epilogue_mem(sorted, count, k_in, nd, nraw, nfin, high, &var, &ok, &n_near);
+  lsi_out[p] = ok ? var : 0.0f;
+  valid_out[p] = ok;
+  count_out[p] = ok ? n_near : 0;
+  shell_out[p] = count;
+}
+
 int grid(int n_rows, int rows_per_block, int n_frames, int* blocks_per_frame,
          unsigned* n_blocks) {
   *blocks_per_frame = (n_rows + rows_per_block - 1) / rows_per_block;
@@ -578,5 +762,25 @@ extern "C" int lsi_split_launch(const float* rows, long long row_fs, long long r
       rows, row_fs, row_cs, n_rows, cols, col_fs, col_cs, n_cols, starts, w, boxes,
       blocks_per_frame, row_tile, raw_rows, rr_fs, rr_cs, raw_cols, rc_fs, rc_cs, starts_wide,
       w_wide, low_sq, high, high_sq, outer_sq, lsi, valid, count, incomplete);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lsi_split_redo_launch(const float* rows, long long row_fs, long long row_cs,
+                                     int n_rows, const float* cols, long long col_fs,
+                                     long long col_cs, int n_cols, const int* starts, int w,
+                                     const float* boxes, int n_frames, int row_tile,
+                                     const float* raw_rows, long long rr_fs, long long rr_cs,
+                                     const float* raw_cols, long long rc_fs, long long rc_cs,
+                                     const int* starts_wide, int w_wide, const long long* pairs,
+                                     int n_pairs, int k_in, float* scratch, float low_sq,
+                                     float high, float high_sq, float outer_sq, float* lsi,
+                                     bool* valid, int* count, int* shell, void* stream) {
+  (void)n_frames;  // each pair names its frame
+  if (n_pairs <= 0) return 0;
+  const unsigned n_blocks = (unsigned)((n_pairs + kWarpsR - 1) / kWarpsR);
+  lsi_split_redo_kernel<<<n_blocks, 32 * kWarpsR, 0, (cudaStream_t)stream>>>(
+      rows, row_fs, row_cs, n_rows, cols, col_fs, col_cs, n_cols, starts, w, boxes, row_tile,
+      raw_rows, rr_fs, rr_cs, raw_cols, rc_fs, rc_cs, starts_wide, w_wide, pairs, n_pairs, k_in,
+      scratch, low_sq, high, high_sq, outer_sq, lsi, valid, count, shell);
   return (int)cudaGetLastError();
 }
