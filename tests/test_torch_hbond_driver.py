@@ -88,6 +88,27 @@ def test_hb_calc_runs_all_nine_sets_through_the_counts(monkeypatch, tmp_path):
     assert calls[0] == (N_FRAMES, N_WAT, 2 * N_WAT) and thd.hbond.last_tier == "dense"
 
 
+@pytest.mark.parametrize("solute", [None, SOLUTE], ids=["water", "cosolvent"])
+def test_hb_sets_match_the_reference_walk(solute):
+    """hb_sets' index tensors equal, element for element, the triplets of
+    the JAX package's per-atom walk on the same system."""
+    (top, _), (jtop, _) = _systems(solute)
+    sets, n_sol, has_sol = thd.hb_sets(top, "WAT", "cpu")
+    sol, _, _, sol_n, sol_o, _ = jtop.get_sol_inds("WAT")
+    hb_o, hb_n = jtop.get_hb_inds(sol_n, sol_o)
+    want = [jtop.get_hb_inds(np.array([], int), jtop.get_wat_inds("WAT")[0])[0]]
+    want += [hb_o, hb_n] if solute else [None, None]
+    assert (n_sol, has_sol) == ((1, True) if solute else (0, False))
+    for got_set, want_set in zip(sets, want):
+        if want_set is None:
+            assert got_set is None
+            continue
+        for g, w in zip(got_set, want_set):
+            assert g.dtype == torch.int64 and g.device.type == "cpu"
+            assert torch.equal(g, torch.as_tensor(np.asarray(w, np.int64)))
+    assert len(sets[0][1]) == 2 * N_WAT and (not solute or len(sets[2][1]) == 2)
+
+
 def test_get_bound_wrap_matches_jax():
     (top, traj), (jtop, jtraj) = _systems(SOLUTE)
     got = thd.get_bound_wrap(top, traj, device="cpu")

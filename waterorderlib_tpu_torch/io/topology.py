@@ -115,27 +115,29 @@ class Topology:
         appended once to the donor list paired with that hydrogen
         (orderParam_lib.py:71-108). Returns (hbO, hbN), each a list
         [acceptors, donors, donorHs] of int arrays.
+
+        The walk is array operations over the directed bond edges, a->b
+        then b->a for each bond, sorted stably by source: that lists every
+        atom's partners in `bond_partners()` order. Acceptors are the
+        targets inside [0, n_atoms) in ascending order, each once.
         """
-        o_set, n_set = set(map(int, o_inds)), set(map(int, n_inds))
-        partners = self.bond_partners()
+        n = self.n_atoms
+        src = self.bonds.reshape(-1).astype(int)
+        dst = self.bonds[:, ::-1].reshape(-1).astype(int)
+        order = np.argsort(src, kind="stable")
+        src, dst = src[order], dst[order]
 
-        def walk(targets: set):
-            acc, don, donh = [], [], []
-            for i in range(self.n_atoms):
-                if i not in targets:
-                    continue
-                acc.append(i)
-                for j in partners[i]:
-                    if "H" in str(self.names[j]):
-                        donh.append(j)
-                        don.append(i)
-            return [
-                np.array(acc, dtype=int),
-                np.array(don, dtype=int),
-                np.array(donh, dtype=int),
-            ]
+        def walk(inds):
+            t = np.asarray(inds).astype(int).ravel()
+            target = np.zeros(n, dtype=bool)
+            target[t[(t >= 0) & (t < n)]] = True
+            from_target = target[src]
+            don, donh = src[from_target], dst[from_target]
+            is_h = np.fromiter(("H" in str(s) for s in self.names[donh]), dtype=bool,
+                               count=len(donh))
+            return [np.flatnonzero(target), don[is_h], donh[is_h]]
 
-        return walk(o_set), walk(n_set)
+        return walk(o_inds), walk(n_inds)
 
     # ---- serialization ---------------------------------------------------
     def to_json(self, path: str):
