@@ -45,8 +45,8 @@ The wrappers keep their signatures across checkouts, so the same inputs go
 to an older and a newer kernel. To compare two checkouts on one card, run
 this file once for each, in turns, within one call:
 
-    python3 waterorderlib_tpu_torch/ops/cuda/ab_voronoi.py --repo OLD --label old
-    python3 waterorderlib_tpu_torch/ops/cuda/ab_voronoi.py --repo . --label new
+    python3 ab_kernels.py --repo OLD --label old
+    python3 ab_kernels.py --repo . --label new
 
 (then new and old again); `--kernels hbond,lsi` picks the groups.
 `--mappings` also times each cell-grid mapping (direct, and grouped at 8 to
@@ -597,7 +597,7 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("ab_voronoi: torch finds no CUDA device", file=sys.stderr)
+        print("ab_kernels: torch finds no CUDA device", file=sys.stderr)
         return 1
     import waterorderlib_tpu_torch
     from waterorderlib_tpu_torch.ops.cuda import build

@@ -69,8 +69,8 @@ def _host_rule(cd, ch):
 
 
 def test_contacts_hybrid_matches_jax():
-    """One frame, 300 liquid points, float32: the port's per-call ladder
-    against the JAX function."""
+    """One frame, 300 liquid points, float32: the port's one-frame call (a
+    frame batch of one) against the JAX function's per-call ladder."""
     pts, box_l = _water_points(300)
     pts = pts.astype(np.float32)
     want = tuple(np.asarray(x) if not isinstance(x, int) else x

@@ -222,9 +222,10 @@ def test_hybrid_frames_npt_matches_jax():
 
 
 def test_hybrid_frames_matches_per_frame():
-    """The frame batch equals the per-frame hybrid: the same certified
-    count, volumes and areas within 1e-5 relative (the JAX package's
-    test_hybrid_frames_matches_per_frame, on the port alone)."""
+    """A batch of two frames gives what its frames give run one by one
+    (one-frame batches): the same certified count, volumes and areas within
+    1e-5 relative (the JAX package's test_hybrid_frames_matches_per_frame,
+    on the port alone)."""
     base, box_l = _water_points(300, seed=4)
     rs = np.random.RandomState(5)
     pos = np.stack([(base + rs.normal(scale=0.1, size=base.shape)) % box_l
@@ -234,6 +235,39 @@ def test_hybrid_frames_matches_per_frame():
     assert nb == sum(r[2] for r in ref)
     assert _rel(vb, np.stack([r[0] for r in ref])) <= REL
     assert _rel(ab, np.stack([r[1] for r in ref])) <= REL
+
+
+@pytest.mark.parametrize("case", ["default500", "pruned2100", "one_tier500"])
+def test_per_frame_is_a_batch_of_one(case):
+    """`voronoi_volumes_hybrid(p, L, n)` is `voronoi_volumes_hybrid_frames(
+    p[None], [L], n)` exactly: volumes, areas, the certified total and every
+    tier's certified count, on the default ladder (the 2,100-point case on
+    the pruned mirror set) and on a one-tier ladder, whose host close reads
+    tier 1's candidates instead of searching for every row."""
+    n = 2100 if case == "pruned2100" else 500
+    pts, box_l = _water_points(n)
+    pts = pts.astype(np.float32)
+    kw = dict(tiers=((32, 64),)) if case == "one_tier500" else {}
+    res, tiers = [], []
+    for call in (lambda: tvd.voronoi_volumes_hybrid(pts, box_l, n, device="cpu", **kw),
+                 lambda: tvd.voronoi_volumes_hybrid_frames(pts[None], [box_l], n, device="cpu",
+                                                           **kw)):
+        tvd.tier_stats.clear()
+        res.append(call())
+        tiers.append({key: dict(v) for key, v in tvd.tier_stats.items()})
+    (v1, a1, n1), (vb, ab, nb) = res
+    np.testing.assert_array_equal(v1, vb[0])
+    np.testing.assert_array_equal(a1, ab[0])
+    assert n1 == nb and tiers[0] == tiers[1]
+    ladder = [key for key in tiers[0] if key != "host"]
+    if case == "pruned2100":
+        assert tvd._suggest_mirror_budget(n, box_l, 64) > 0
+    if case == "one_tier500":
+        host = tiers[0]["host"]
+        assert ladder == [(32, 64)] and host["rows"] == n - n1
+        assert host["full_search"] < host["rows"]
+    else:
+        assert len(ladder) >= 3
 
 
 def test_f64_cpu_matches_qhull():

@@ -70,6 +70,35 @@ def test_voronoi_calc_matches_jax(tmp_path, engine, n_pops):
     assert abs(out[0][0][0] - vol_per_water) / vol_per_water < 0.25
 
 
+@pytest.mark.parametrize("n_pops", [0, 1])
+def test_voronoi_calc_one_frame_device_matches_jax(tmp_path, n_pops):
+    """One frame on the device engine (a frame batch of one) against the JAX
+    driver, with the tolerances of test_voronoi_calc_matches_jax."""
+    top, traj = make_water_box(N_WAT, n_frames=1, seed=43)
+    jtop, jtraj = jax_water_box(N_WAT, n_frames=1, seed=43)
+    pops = lambda t: [[t.get_wat_inds()[0][:5]]] if n_pops else None
+    dj, dt = tmp_path / "jax", tmp_path / "port"
+    dj.mkdir()
+    dt.mkdir()
+    ref = jdrv.voronoi_calc(jtop, jtraj, sub_inds=pops(jtop), n_pops=n_pops,
+                            output_dir=str(dj), engine="device")
+    out = tdrv.voronoi_calc(top, traj, sub_inds=pops(top), n_pops=n_pops,
+                            output_dir=str(dt), engine="device", device="cpu")
+    assert len(out) == 6
+    for a, b in zip(out, ref):
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-6)
+    for j in range(n_pops + 1):
+        for name in FILES:
+            a = np.loadtxt(dt / f"{name}_{j}.txt")
+            b = np.loadtxt(dj / f"{name}_{j}.txt")
+            np.testing.assert_array_equal(a[:, 0], b[:, 0])
+            flips = np.where(a[:, 1] != b[:, 1])[0]
+            assert len(flips) <= 2, (name, j, flips)
+    vol_per_water = float(np.prod(traj.boxes[0].astype(float))) / N_WAT
+    assert abs(out[0][0][0] - vol_per_water) / vol_per_water < 0.25
+
+
 def test_voronoi_calc_chunk_invariant(tmp_path):
     """chunk_frames=1 against one chunk of all frames and the default: the
     same six results, exactly."""

@@ -22,7 +22,12 @@ import numpy as np
 
 from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end
-from waterorderlib_tpu_torch.drivers.orderparams import _not_ported, _resolve_system, _save_hist
+from waterorderlib_tpu_torch.drivers.orderparams import (
+    _mean_ci_rows,
+    _not_ported,
+    _resolve_system,
+    _save_hist,
+)
 from waterorderlib_tpu_torch.stats import blocks
 from waterorderlib_tpu_torch.utils import logging as _logging_mod
 
@@ -87,8 +92,8 @@ def voronoi_calc(
     host close; "auto" = device on a CUDA device at >= 2048 points, else
     host. The device engine batches frames in chunks of `chunk_frames`
     (default min(F, 16)): one search launch and one clip build for tier 1
-    of a chunk, one launch per escalation tier; a single frame without
-    chunk_frames takes the per-frame hybrid."""
+    of a chunk, one launch per escalation tier; one frame is a batch of
+    one."""
     _not_ported(mesh)
     dev = resolve_device(device)
     top, traj = _resolve_system(top_file, traj_file, stride)
@@ -101,56 +106,41 @@ def voronoi_calc(
     nw = len(wat_inds)
     eng = _pick_engine(engine, len(heavy), dev)
     _log_engine_once("voronoi_calc", eng)
-    vol_b = area_b = None
+    vol_b = np.zeros((F, nw))
+    area_b = np.zeros((F, nw))
     if eng == "device":
-        from waterorderlib_tpu_torch.surface.voronoi_device import (
-            voronoi_volumes_hybrid,
-            voronoi_volumes_hybrid_frames,
-        )
+        from waterorderlib_tpu_torch.surface.voronoi_device import voronoi_volumes_hybrid_frames
 
-        if F > 1 or chunk_frames is not None:
-            cf = int(chunk_frames) if chunk_frames else min(F, 16)
-            vol_b = np.zeros((F, nw))
-            area_b = np.zeros((F, nw))
-            n_cert_tot = 0
-            for c0 in range(0, F, cf):
-                c1 = min(c0 + cf, F)
-                pos_b = _gather(traj, c0, c1, heavy)
-                box_ls = np.asarray(traj.boxes[c0:c1, 0], np.float64)
-                stage_end("host gather")
-                vol_b[c0:c1], area_b[c0:c1], n_c = voronoi_volumes_hybrid_frames(
-                    pos_b, box_ls, nw, device=dev
-                )
-                n_cert_tot += int(n_c)
-            _log_engine_once(
-                "voronoi_calc.cert", "device",
-                f" ({n_cert_tot}/{F * nw} cells device-certified, frames "
-                f"batched in chunks of {cf})",
+        cf = int(chunk_frames) if chunk_frames else min(F, 16)
+        n_cert_tot = 0
+        for c0 in range(0, F, cf):
+            c1 = min(c0 + cf, F)
+            pos_b = _gather(traj, c0, c1, heavy)
+            box_ls = np.asarray(traj.boxes[c0:c1, 0], np.float64)
+            stage_end("host gather")
+            vol_b[c0:c1], area_b[c0:c1], n_c = voronoi_volumes_hybrid_frames(
+                pos_b, box_ls, nw, device=dev
             )
+            n_cert_tot += int(n_c)
+        _log_engine_once(
+            "voronoi_calc.cert", "device",
+            f" ({n_cert_tot}/{F * nw} cells device-certified, frames "
+            f"batched in chunks of {cf})",
+        )
+    else:
+        from waterorderlib_tpu_torch.surface.voronoi import voronoi_volumes
+
+        for t in range(F):
+            pos = traj.positions[t].astype(np.float64)
+            vol_b[t], area_b[t] = voronoi_volumes(pos[heavy], float(traj.boxes[t][0]), nw)
+            stage_end("host tessellation")
 
     stats = {k: np.zeros((F, n_pops + 1)) for k in
              ("avgV", "varV", "avgA", "varA", "avgE", "varE")}
     val_lists = {k: [[] for _ in range(n_pops + 1)] for k in ("V", "A", "E")}
 
     for t in range(F):
-        pos = traj.positions[t].astype(np.float64)
-        box_l = float(traj.boxes[t][0])
-        if vol_b is not None:
-            vol, area = vol_b[t], area_b[t]
-        elif eng == "device":
-            vol, area, n_cert = voronoi_volumes_hybrid(
-                pos[heavy].astype(np.float32), box_l, nw, device=dev)
-            stage_end("host close")
-            if t == 0:
-                _log_engine_once(
-                    "voronoi_calc.cert", "device",
-                    f" ({n_cert}/{nw} cells device-certified on frame 0)",
-                )
-        else:
-            from waterorderlib_tpu_torch.surface.voronoi import voronoi_volumes
-
-            vol, area = voronoi_volumes(pos[heavy], box_l, nw)
-            stage_end("host tessellation")
+        vol, area = vol_b[t], area_b[t]
         eta = np.where(
             np.isinf(vol) | np.isinf(area), np.inf,
             area**3 / (36.0 * np.pi * np.maximum(vol, 1e-300) ** 2),
@@ -182,13 +172,8 @@ def voronoi_calc(
             _save_hist(os.path.join(output_dir, fname), hist, 500, rng[0], rng[1], header)
     stage_end("savetxt")
 
-    def mc(key):
-        arr = stats[key]
-        means = np.nanmean(arr, axis=0)
-        cis = np.array([blocks.block_average(arr[:, j], seed=seed) for j in range(n_pops + 1)])
-        return [means, cis]
-
-    res = mc("avgV"), mc("varV"), mc("avgA"), mc("varA"), mc("avgE"), mc("varE")
+    res = tuple(_mean_ci_rows(stats[key], seed)
+                for key in ("avgV", "varV", "avgA", "varA", "avgE", "varE"))
     stage_end("bootstrap CIs")
     return res
 

@@ -26,9 +26,14 @@ builder's). What it drops: the TPU's attempt ladders and `_dispatch_cells`
 search and the builder), the scoped-VMEM fit models of the search, and the
 128-lane rounding of window starts.
 
-Frames are a batch dimension: tier 1 of a frame batch is one search launch
-and one batched cell build, and each escalation tier one more, for volumes
-and contacts alike. The clip builder works on blocks of rows; its sums over
+Frames are a batch dimension, and there is one tier ladder, the frame
+batch's: tier 1 of a frame batch is one search launch and one batched cell
+build (`_tier1_frames_local`), each escalation tier one more
+(`_escalate_frames_batched`), then the host close per frame
+(`_host_close`), for volumes and contacts alike. The per-frame entry points
+(`voronoi_cells_device`, `voronoi_volumes_hybrid`,
+`voronoi_contacts_hybrid`, the JAX package's API) are batches of one
+frame. The clip builder works on blocks of rows; its sums over
 edges and faces are taken in a fixed order, so a row's moments do not
 depend on the block it lies in, the frame batch, or the device. Its
 products over xyz are written as sums (no matmul, so no TF32). float32 runs
@@ -112,14 +117,6 @@ class _TierStats(Mapping):
 
 tier_stats = _TierStats()
 _count = tier_stats.add
-
-
-def _count_escalation(searched: int, certified: int) -> None:
-    """Rows an escalation tier searched (bucket padding included) and
-    certified: the registry's `voronoi:escalation:*`, summed over the tiers
-    after the first."""
-    clock.count("voronoi:escalation:rows", searched)
-    clock.count("voronoi:escalation:certified", certified)
 
 
 def _not_ported(mesh=None):
@@ -975,14 +972,19 @@ def _cells_blocked(centers, ext, k, k_search, row_block, eps, win=None, cg=None,
     return out
 
 
+def _bucket(n: int) -> int:
+    """The padded size of a subset of n rows: a power of two, at least 64."""
+    return max(64, 1 << int(np.ceil(np.log2(max(n, 1)))))
+
+
 def _bucket_pad(idx):
-    """Row ids padded to a power of two (at least 64) with copies of the
-    first, as the JAX package pads its subsets: the padded rows sit in the
-    z-sorted row blocks and decide, with the window, their coverage.
-    Returns (padded ids, count of real ones)."""
+    """Row ids padded to `_bucket` with copies of the first, as the JAX
+    package pads its subsets: the padded rows sit in the z-sorted row blocks
+    and decide, with the window, their coverage. Returns (padded ids, count
+    of real ones)."""
     idx = np.asarray(idx)
     n_want = len(idx)
-    bucket = max(64, 1 << int(np.ceil(np.log2(max(n_want, 1)))))
+    bucket = _bucket(n_want)
     fill = np.full(bucket - n_want, idx[0] if n_want else 0, idx.dtype if n_want else np.int64)
     return np.concatenate([idx, fill]), n_want
 
@@ -1031,13 +1033,12 @@ def voronoi_cells_device(
     pruning prune_margin). cell_impl: the builder ("clip", "pallas": the
     fused kernel where `fits_voronoi_cells(k, k_search)` holds, "triple")."""
     _check_cell_impl(cell_impl)
-    dev = resolve_device(device)
-    pts = _as_points(points, dev)
+    pb = _as_points(points, resolve_device(device))[None]
     if eps is None:
-        eps = 1e-10 if pts.dtype == torch.float64 else 1e-4
+        eps = 1e-10 if pb.dtype == torch.float64 else 1e-4
     if k_search < k:
         raise ValueError(f"k_search={k_search} must be >= k={k}")
-    p_real = int(pts.shape[0])
+    p_real = int(pb.shape[1])
     if isinstance(cg, str) and cg == "auto":
         cg = _suggest_cellgrid(
             p_real, float(box_l), k_search,
@@ -1048,46 +1049,18 @@ def voronoi_cells_device(
         if prune_mirrors is not None
         else (cg is None and centers_idx is None and p_real >= 2048)
     )
-    box_t = torch.tensor([float(box_l)], dtype=pts.dtype, device=dev)
-    ext_map = margin_eff = None
-    budget = _suggest_mirror_budget(p_real, float(box_l), k_search)
-    if use_prune and budget > 0:
-        ext, ext_map, margin_eff = mirror_points_pruned(pts[None], box_t, budget)
-    else:
-        ext = mirror_points_device(pts[None], box_t)
-    n_want = None
-    if centers_idx is None:
-        centers = pts[:num]
-    else:
-        # bucket-pad the escalation subset to a power of two (copies of its
-        # first row), as the JAX package does: the padded rows sit in the
-        # z-sorted row blocks and decide, with the window, their coverage
-        padded_idx, n_want = _bucket_pad(centers_idx)
-        centers = pts[torch.as_tensor(padded_idx, dtype=torch.long, device=dev)]
-    nc = int(centers.shape[0])
+    mb = _suggest_mirror_budget(p_real, float(box_l), k_search) if use_prune else 0
+    p4 = p_real + mb if mb > 0 else 4 * p_real
     if win is None:
-        win = _suggest_win(p_real, int(ext.shape[1]), float(box_l), k_search)
+        win = _suggest_win(p_real, p4, float(box_l), k_search)
     elif win <= 0:
-        win = int(ext.shape[1])  # force the full scan
-    real = None if n_want is None else (torch.arange(nc, device=dev) < n_want)[None]
-    out = _cells_blocked(
-        centers[None], ext, k, k_search, min(row_block, max(1, nc)), float(eps), win=win,
-        cg=cg, box_l=box_t, real=real, cell_impl=cell_impl,
-        n_real=p_real if ext_map is not None else None,
-    )
-    out["certified"] = _certify(out, margin_eff)
-    if ext_map is not None:
-        # restore full-4P-layout neighbor ids for every downstream consumer
-        out["nbr_idx"] = torch.gather(ext_map, 1, out["nbr_idx"].reshape(1, -1).long()).reshape(
-            out["nbr_idx"].shape)
-        # host-close consumers must cap the unseen-candidate bound at the
-        # pruning margin (excluded mirrors can be nearer than d_far)
-        out["prune_margin"] = torch.full_like(out["r_cell"], float(margin_eff[0]))
-    out = {kk: v[0] for kk, v in out.items()}
-    _count((k, k_search), certified=int(out["certified"][: n_want or nc].sum()))
-    if n_want is not None:  # drop bucket padding
-        out = {kk: v[:n_want] for kk, v in out.items()}
-    return out
+        win = p4  # force the full scan
+    bl = torch.tensor([float(box_l)], dtype=pb.dtype, device=pb.device)
+    out = _tier1_frames_local(pb, bl, num, k, k_search, row_block, float(eps), int(win), mb, cg,
+                              cell_impl, sel=centers_idx)
+    if mb == 0:
+        del out["prune_margin"]
+    return {key: v[0] for key, v in out.items()}
 
 
 # --- host close -----------------------------------------------------------
@@ -1126,48 +1099,28 @@ def _np(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def _device_candidates(tier_rows, bad, ext, points):
-    """Yield (rel, d_far, sel) per bad row from the latest tier that
-    computed it — the device already found each row's k_search nearest
-    candidates, so the host close needs no search of its own."""
-    latest = {}
-    for rows_idx, o in tier_rows:
-        nbr_idx = _np(o["nbr_idx"])
-        nbr_dist = _np(o["nbr_dist"])
-        nbr_valid = _np(o["nbr_valid"])
-        wcov = _np(o["win_covered"])
-        pm = o.get("prune_margin")
-        pm = None if pm is None else _np(pm)
-        for p, r in enumerate(rows_idx):
-            latest[int(r)] = (
-                nbr_idx[p], nbr_dist[p], nbr_valid[p], wcov[p],
-                np.inf if pm is None else float(pm[p]),
-            )
-    for i in bad:
-        entry = latest.get(int(i))
-        if entry is None:
-            # no tier computed this row's candidates: full host search
-            yield np.zeros((0, 3)), -np.inf, np.zeros(0, int)
-            continue
-        idxs, dvec, valid, covered, pmv = entry
-        if not covered or not valid.any():
+# a tier's payload that `_device_candidates` reads
+_CANDIDATE_KEYS = ("nbr_idx", "nbr_dist", "nbr_valid", "win_covered", "prune_margin")
+
+
+def _device_candidates(cand, bad, ext, points):
+    """Yield (rel, d_far, sel) per uncertified row bad[j] from row j of
+    `cand`, the latest tier's search of it (`_left_candidates`): the device
+    already found each row's k_search nearest candidates, so the host close
+    needs no search of its own."""
+    pm = cand.get("prune_margin", np.full(len(bad), np.inf))
+    for j, i in enumerate(bad):
+        valid = cand["nbr_valid"][j]
+        if not cand["win_covered"][j] or not valid.any():
             # the window search may have missed nearer candidates: force
             # the full host search by failing the d_far certificate
             yield np.zeros((0, 3)), -np.inf, np.zeros(0, int)
             continue
-        sel = idxs[valid]
+        sel = cand["nbr_idx"][j][valid]
         rel = ext[sel] - np.asarray(points[i], ext.dtype)[None, :]
         # under mirror pruning, unseen excluded mirrors are only known to
         # lie beyond the pruning margin — the far-candidate bound caps there
-        yield rel, float(min(dvec[valid][-1], pmv)), sel
-
-
-def _host_cell_from_device(rel: np.ndarray, d_far: float):
-    """Host cell from the device-found candidate list (no host search).
-    Returns (vol, area, fa, nv, r_cell, certified): certified means no
-    unseen candidate (all beyond d_far) can cut the cell."""
-    vol, area, fa, nv, r_cell = _host_cell(rel)
-    return vol, area, fa, nv, r_cell, bool(d_far >= 2.0 * r_cell)
+        yield rel, float(min(cand["nbr_dist"][j][valid][-1], pm[j])), sel
 
 
 def _host_cell_best(ext: np.ndarray, center: np.ndarray, k2: int):
@@ -1189,54 +1142,12 @@ def _host_cell_best(ext: np.ndarray, center: np.ndarray, k2: int):
         k2 *= 2
 
 
-def _escalate_and_close(points, box_l, num, vol, area, cert, tier_rows, tiers_rest,
-                        row_block, fallback_k, device, dtype, cell_impl=DEFAULT_CELL_IMPL,
-                        rows=None, block=None):
-    """Escalation ladder + host close shared by the per-frame and the
-    frame-batched hybrids, volumes and contacts: re-run the uncertified
-    rows through the remaining (k, k_search) tiers (`voronoi_cells_device`
-    per tier; the last one full-scans, so a window miss never forces a host
-    close), then close any residue on the host (`_host_close`). cert (n,):
-    per row, row r being point rows[r] (None: point r); vol/area (num,) per
-    point; block (n, num): the rows' contacts, or None. `dtype`: the device
-    computation's, in which the host close builds its mirror set. Mutates
-    vol/area/cert/block in place and returns vol, area, cert."""
-    rows = np.arange(len(cert)) if rows is None else rows
-    P = len(points)
-    for ti, tier in enumerate(tiers_rest):
-        k2, ks2 = tier[:2]
-        bad_pos = np.where(~cert)[0]
-        if not len(bad_pos):
-            break
-        bad_idx = rows[bad_pos]
-        last = ti == len(tiers_rest) - 1
-        win_t = 0 if last else _quantize_win(
-            _suggest_win_subset(P, float(box_l), ks2, len(bad_idx)), 4 * P)
-        out2 = voronoi_cells_device(
-            points, box_l, num, k=k2, k_search=ks2, row_block=row_block,
-            centers_idx=bad_idx, win=win_t, cell_impl=cell_impl,
-            cg=None if last else "auto", device=device,
-        )
-        tier_rows.append((bad_idx, out2))
-        c2 = _np(out2["certified"])
-        _count_escalation(len(_bucket_pad(bad_idx)[0]), int(c2.sum()))
-        fixed = bad_idx[c2]
-        vol[fixed] = _np(out2["vol"]).astype(np.float64)[c2]
-        area[fixed] = _np(out2["area"]).astype(np.float64)[c2]
-        if block is not None:
-            _scatter_contact_rows(block, {key: _np(out2[key]) for key in (
-                "face_area", "face_nverts", "nbr_idx")}, bad_pos, c2, P, num)
-        cert[bad_pos[c2]] = True
-    _host_close(points, box_l, num, rows, cert, vol, area, tier_rows, fallback_k, dtype, block)
-    return vol, area, cert
-
-
-def _host_close(points, box_l, num, rows, cert, vol, area, tier_rows, fallback_k, dtype,
+def _host_close(points, box_l, num, rows, cert, vol, area, cand, fallback_k, dtype,
                 block=None):
     """Close the uncertified rows (cert (n,), row r being point rows[r]) on
-    the host from the latest tier's candidates, or a host search where
-    unseen candidates could cut; with `block` (n, num), add each closed
-    row's faces to its contact row (the doubling quirk as in
+    the host from their candidates `cand` (`_left_candidates`), or a host
+    search where unseen candidates could cut; with `block` (n, num), add
+    each closed row's faces to its contact row (the doubling quirk as in
     `_scatter_contact_rows`). Mutates vol, area (num,) and block."""
     bad_pos = np.where(~cert)[0]
     if not len(bad_pos):
@@ -1247,10 +1158,11 @@ def _host_close(points, box_l, num, rows, cert, vol, area, tier_rows, fallback_k
     bad = rows[bad_pos]
     n_full = 0
     for pos, i, (rel, d_far, sel) in zip(bad_pos, bad,
-                                         _device_candidates(tier_rows, bad, ext, points)):
+                                         _device_candidates(cand, bad, ext, points)):
         ok = False
         if len(rel) >= 4 and np.isfinite(d_far):
-            v_i, a_i, fa, nv, r_cell, ok = _host_cell_from_device(rel, d_far)
+            v_i, a_i, fa, nv, r_cell = _host_cell(rel)
+            ok = d_far >= 2.0 * r_cell  # no unseen candidate (all beyond d_far) can cut
         if not ok:  # unseen candidates could cut: full host search
             v_i, a_i, fa, nv, sel = _host_cell_best(ext, points[i], fallback_k)
             n_full += 1
@@ -1263,38 +1175,25 @@ def _host_close(points, box_l, num, rows, cert, vol, area, tier_rows, fallback_k
     _count("host", rows=len(bad), full_search=n_full)
 
 
-@clock.traced("dispatch:voronoi_volumes_hybrid", device=True)
-def voronoi_volumes_hybrid(
-    points: np.ndarray,
-    box_l: float,
-    num: int,
-    tiers=DEFAULT_TIERS,
-    row_block: int = 256,
-    fallback_k: int = 96,
-    cell_impl: str = DEFAULT_CELL_IMPL,
-    device="cuda",
-):
-    """Drop-in for `surface.voronoi.voronoi_volumes`: device cells where
-    certified (escalating through the (k, k_search) tiers), per-atom host
-    half-space cells otherwise. Returns (vol (num,), area (num,),
-    n_certified) as float64 numpy."""
-    _check_cell_impl(cell_impl)
-    tiers = _tiers_for(cell_impl, tiers)
-    points = np.asarray(points)
-    k0, ks0 = tiers[0][:2]
-    out = voronoi_cells_device(
-        points, box_l, num, k=k0, k_search=ks0, row_block=row_block, cell_impl=cell_impl,
-        device=device,
-    )
-    vol = _np(out["vol"]).astype(np.float64)
-    area = _np(out["area"]).astype(np.float64)
-    cert = _np(out["certified"]).copy()
-    tier_rows = [(np.arange(num), out)]
-    vol, area, cert = _escalate_and_close(
-        points, box_l, num, vol, area, cert, tier_rows, tiers[1:],
-        row_block, fallback_k, device, out["vol"].dtype, cell_impl,
-    )
-    return vol, area, int(cert.sum())
+def _left_candidates(tier1, last, cert_b):
+    """The candidates of the rows the ladder left uncertified (cert_b (F,
+    n)), one gather a key for the batch, from the latest tier that searched
+    them: the last escalation tier that ran (`last`, as
+    `_escalate_frames_batched` returns it; it took every row left), else
+    tier 1 (`tier1`, the `_tier1_frames_local` dict). Returns per frame
+    {key: numpy (rows left, ...)} in row order, None where no row is left."""
+    frame, pos = np.nonzero(~cert_b)
+    if not len(frame):
+        return [None] * len(cert_b)
+    src, at = tier1, pos
+    if last is not None:
+        bad_pos, src = last
+        at = np.concatenate([np.searchsorted(b, pos[frame == t]) for t, b in enumerate(bad_pos)])
+    dev = src["nbr_idx"].device
+    idx = (clock.to_device(frame, torch.long, dev), clock.to_device(at, torch.long, dev))
+    cand = {key: _np(src[key][idx]) for key in _CANDIDATE_KEYS if key in src}
+    return [{key: v[frame == t] for key, v in cand.items()} if (frame == t).any() else None
+            for t in range(len(cert_b))]
 
 
 # --- the frame batch --------------------------------------------------------
@@ -1324,10 +1223,11 @@ def _tier1_frames_local(pb, bl, num, k, ks, row_block, eps, win, mb=0, cg=None,
     """Tier-1 cells of a frame batch pb (F, P, 3), boxes bl (F,): mirror
     construction (pruned when mb > 0), one search launch, the cells, the
     certificate. Rows: the first `num` points, or the point ids `sel`
-    (bucket-padded for the search, as `voronoi_cells_device` pads; the
-    padding gets no cells and is dropped). Returns the `_cells_blocked`
-    dict (F, rows, ...) with `certified`, nbr_idx in the full 4P layout
-    and prune_margin (+inf without pruning)."""
+    (bucket-padded for the search, as the JAX package pads its escalation
+    subsets; the padding gets no cells and is dropped); row blocks of at
+    most `row_block` of them. Returns the `_cells_blocked` dict (F, rows,
+    ...) with `certified`, nbr_idx in the full 4P layout and prune_margin
+    (+inf without pruning)."""
     F, P = pb.shape[0], pb.shape[1]
     if mb > 0:
         ext, ext_map, margin_eff = mirror_points_pruned(pb, bl, mb)
@@ -1340,7 +1240,7 @@ def _tier1_frames_local(pb, bl, num, k, ks, row_block, eps, win, mb=0, cg=None,
         padded, n_want = _bucket_pad(sel)
         centers = pb[:, clock.to_device(padded, torch.long, pb.device)]
         real = (torch.arange(len(padded), device=pb.device) < n_want)[None].expand(F, -1)
-        row_block = min(row_block, len(padded))
+    row_block = min(row_block, max(1, centers.shape[1]))
     out = _cells_blocked(centers, ext, k, ks, row_block, eps, win=win,
                          cg=cg, box_l=bl, stage="tier-1", real=real, cell_impl=cell_impl,
                          n_real=P if mb > 0 else None)
@@ -1356,33 +1256,18 @@ def _tier1_frames_local(pb, bl, num, k, ks, row_block, eps, win, mb=0, cg=None,
     return out
 
 
-def _tier_subset_frames(pb, bl, rows, real, k, ks, row_block, eps, win, cg=None,
-                        cell_impl=DEFAULT_CELL_IMPL):
-    """One escalation tier for selected rows (F, B) of every frame, on the
-    full mirror set (`real` (F, B): the rows that are not bucket padding).
-    Returns the `_cells_blocked` dict (F, B, ...) with `certified`."""
-    ext = mirror_points_device(pb, bl)
-    out = _cells_blocked(_gather_rows(pb, rows), ext, k, ks, row_block, eps, win=win, cg=cg,
-                         box_l=bl, real=real, cell_impl=cell_impl)
-    out["certified"] = _certify(out)
-    return out
-
-
 def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_rest, pb, bl,
                              cell_impl=DEFAULT_CELL_IMPL, rows=None, faces=None):
-    """The escalation ladder of a frame batch, one search launch per tier.
-    vol_b, area_b, cert_b (F, n): per frame row; `rows` (n,) the point id
-    of each row (None: row i is point i). Mutates/returns (vol_b, area_b,
-    cert_b, payload): payload[t] is frame t's `tier_rows` for its host
-    close (the last tier's candidates, keyed by point id). `faces`: None,
-    or a list per frame to which each tier appends its certified rows'
-    (row positions, face_area, face_nverts, nbr_idx): the contacts'
-    payload."""
+    """The escalation ladder of a frame batch, one search launch per tier,
+    each on the full mirror set. vol_b, area_b, cert_b (F, n): per frame
+    row; `rows` (n,) the point id of each row (None: row i is point i).
+    Mutates/returns (vol_b, area_b, cert_b, last): last is None where no
+    tier ran, else the last one's (per frame the row positions it took,
+    its `_cells_blocked` dict (F, bucket, ...)). `faces`: None, or a list
+    per frame to which each tier appends its certified rows' (row
+    positions, face_area, face_nverts, nbr_idx): the contacts' payload."""
     F, n_pts = pos_batch.shape[0], pos_batch.shape[1]
-    payload = [[] for _ in range(F)]
-    last = None  # final executed tier: (bad point ids, device payload)
-    if not tiers_rest:
-        return vol_b, area_b, cert_b, payload
+    last = None
     eps = 1e-10 if pb.dtype == torch.float64 else 1e-4
     p4 = 4 * n_pts
     box_min = float(np.min(box_ls))
@@ -1395,7 +1280,7 @@ def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_res
         max_bad = max(len(b) for b in bad_rows)
         if max_bad == 0:
             break
-        bucket = max(64, 1 << int(np.ceil(np.log2(max_bad))))
+        bucket = _bucket(max_bad)
         rows_np = np.zeros((F, bucket), np.int64)
         real = np.zeros((F, bucket), bool)
         for t, b in enumerate(bad_rows):
@@ -1412,17 +1297,18 @@ def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_res
         # density-tail rows escalate, so the subset grid takes a wider edge;
         # the last tier full-scans (no coverage veto there)
         cg2 = None if is_last else _suggest_cellgrid(n_pts, box_min, ks2, s_factor=1.4)
-        rb = min(256, bucket)
-        res = _tier_subset_frames(
-            pb, bl, clock.to_device(rows_np, device=pb.device),
-            clock.to_device(real, device=pb.device), k2, ks2, rb, float(eps),
-            win_t if win_t > 0 else None, cg2, cell_impl,
+        res = _cells_blocked(
+            _gather_rows(pb, clock.to_device(rows_np, device=pb.device)),
+            mirror_points_device(pb, bl), k2, ks2, min(256, bucket), float(eps),
+            win=win_t if win_t > 0 else None, cg=cg2, box_l=bl,
+            real=clock.to_device(real, device=pb.device), cell_impl=cell_impl,
         )
+        res["certified"] = _certify(res)
         vol2, area2, cert2 = (_np(res[key]) for key in ("vol", "area", "certified"))
         if faces is not None:
             fa2, fn2, ni2 = (_np(res[key]) for key in ("face_area", "face_nverts", "nbr_idx"))
         stage_end(f"escalation ({k2}, {ks2})")
-        last = (bad_rows, res)
+        last = (bad_pos, res)
         n_cert = 0
         for t, b in enumerate(bad_pos):
             nb = len(b)
@@ -1437,44 +1323,17 @@ def _escalate_frames_batched(pos_batch, box_ls, vol_b, area_b, cert_b, tiers_res
             if faces is not None:
                 faces[t].append((fixed, fa2[t, :nb][c2], fn2[t, :nb][c2], ni2[t, :nb][c2]))
         _count((k2, ks2), certified=n_cert)
-        _count_escalation(F * bucket, n_cert)
-    if last is not None and any(not cert_b[t].all() for t in range(F)):
-        bad_rows, res = last
-        nd, nidx, nvalid, wcov = (_np(res[key]) for key in (
-            "nbr_dist", "nbr_idx", "nbr_valid", "win_covered"))
-        for t, b in enumerate(bad_rows):
-            nb = len(b)
-            if nb == 0 or cert_b[t].all():
-                continue
-            payload[t] = [(b, {
-                "nbr_dist": nd[t, :nb], "nbr_idx": nidx[t, :nb],
-                "nbr_valid": nvalid[t, :nb], "win_covered": wcov[t, :nb],
-            })]
-    return vol_b, area_b, cert_b, payload
+        # the registry's `voronoi:escalation:*`: rows the tiers after the
+        # first searched (bucket padding included) and certified
+        clock.count("voronoi:escalation:rows", F * bucket)
+        clock.count("voronoi:escalation:certified", n_cert)
+    return vol_b, area_b, cert_b, last
 
 
-@clock.traced("dispatch:voronoi_volumes_hybrid_frames", device=True)
-def voronoi_volumes_hybrid_frames(
-    pos_batch: np.ndarray,
-    box_ls: np.ndarray,
-    num: int,
-    tiers=DEFAULT_TIERS,
-    row_block: int = 256,
-    fallback_k: int = 96,
-    cell_impl: str = DEFAULT_CELL_IMPL,
-    mesh=None,
-    device="cuda",
-):
-    """Frame-batched `voronoi_volumes_hybrid`: tier-1 cells for all frames
-    in one search launch and one batched cell build, then one launch per
-    escalation tier for the whole batch, then a host close per frame from
-    the last tier's candidates.
-
-    pos_batch: (F, P, 3) (float64 stays float64: CPU only); box_ls: (F,)
-    cubic box edges (may vary, NPT). Returns (vol (F, num), area (F, num),
-    n_certified_total) as float64 numpy."""
+def _volumes_frames(pos_batch, box_ls, num, tiers, row_block, fallback_k, cell_impl, device):
+    """The volumes frame batch (see `voronoi_volumes_hybrid_frames`), in no
+    span of its own."""
     _check_cell_impl(cell_impl)
-    _not_ported(mesh)
     tiers = _tiers_for(cell_impl, tiers)
     dev = resolve_device(device)
     pos_batch = np.asarray(pos_batch)
@@ -1493,29 +1352,65 @@ def voronoi_volumes_hybrid_frames(
     vol_b = _np(out["vol"]).astype(np.float64)
     area_b = _np(out["area"]).astype(np.float64)
     cert_b = _np(out["certified"]).astype(bool)
-    vol_b, area_b, cert_b, payload = _escalate_frames_batched(
+    vol_b, area_b, cert_b, last = _escalate_frames_batched(
         pos_batch, box_ls, vol_b, area_b, cert_b, tiers[1:], pb, bl, cell_impl
     )
-    n_cert_total = 0
-    for t in range(F):
-        cert_t = cert_b[t].copy()
-        vol_b[t], area_b[t], cert_t = _escalate_and_close(
-            pos_batch[t], float(box_ls[t]), num, vol_b[t], area_b[t],
-            cert_t, payload[t], (), row_block, fallback_k, dev, pb.dtype,
-        )
-        n_cert_total += int(cert_t.sum())
+    for t, cand in enumerate(_left_candidates(out, last, cert_b)):
+        _host_close(pos_batch[t], float(box_ls[t]), num, np.arange(num), cert_b[t], vol_b[t],
+                    area_b[t], cand, fallback_k, pb.dtype)
     stage_end("host close")
-    return vol_b, area_b, n_cert_total
+    return vol_b, area_b, int(cert_b.sum())
+
+
+@clock.traced("dispatch:voronoi_volumes_hybrid", device=True)
+def voronoi_volumes_hybrid(
+    points: np.ndarray,
+    box_l: float,
+    num: int,
+    tiers=DEFAULT_TIERS,
+    row_block: int = 256,
+    fallback_k: int = 96,
+    cell_impl: str = DEFAULT_CELL_IMPL,
+    device="cuda",
+):
+    """Drop-in for `surface.voronoi.voronoi_volumes`: device cells where
+    certified (escalating through the (k, k_search) tiers), per-atom host
+    half-space cells otherwise. Returns (vol (num,), area (num,),
+    n_certified) as float64 numpy. A frame batch of one frame."""
+    vol, area, n_cert = _volumes_frames(np.asarray(points)[None], [box_l], num, tiers, row_block,
+                                        fallback_k, cell_impl, device)
+    return vol[0], area[0], n_cert
+
+
+@clock.traced("dispatch:voronoi_volumes_hybrid_frames", device=True)
+def voronoi_volumes_hybrid_frames(
+    pos_batch: np.ndarray,
+    box_ls: np.ndarray,
+    num: int,
+    tiers=DEFAULT_TIERS,
+    row_block: int = 256,
+    fallback_k: int = 96,
+    cell_impl: str = DEFAULT_CELL_IMPL,
+    mesh=None,
+    device="cuda",
+):
+    """Frame-batched `voronoi_volumes_hybrid`: tier-1 cells for all frames
+    in one search launch and one batched cell build, then one launch per
+    escalation tier for the whole batch, then a host close per frame from
+    each row's latest tier's candidates.
+
+    pos_batch: (F, P, 3) (float64 stays float64: CPU only); box_ls: (F,)
+    cubic box edges (may vary, NPT). Returns (vol (F, num), area (F, num),
+    n_certified_total) as float64 numpy."""
+    _not_ported(mesh)
+    return _volumes_frames(pos_batch, box_ls, num, tiers, row_block, fallback_k, cell_impl,
+                           device)
 
 
 # --- contacts ---------------------------------------------------------------
 
-# the tier-1 payload of a contacts frame batch: what `_scatter_contact_rows`
-# and `_device_candidates` read
-_CONTACTS_TIER1_KEYS = (
-    "vol", "area", "certified", "face_area", "face_nverts",
-    "nbr_idx", "nbr_dist", "nbr_valid", "win_covered", "prune_margin",
-)
+# the tier-1 payload of a contacts frame batch that `_scatter_contact_rows` reads
+_CONTACTS_TIER1_KEYS = ("vol", "area", "certified", "face_area", "face_nverts", "nbr_idx")
 
 
 def _scatter_contact_rows(block, out, row_pos, keep_mask, P, num):
@@ -1577,31 +1472,9 @@ def voronoi_contacts_hybrid(
     contribute 2x their polygon area to the contact matrix, 3-vertex faces
     1x (surface_library.py:295-303). `rows` (distinct point ids) restricts
     which cells are computed; other rows of the returned arrays are zero.
-    One frame, with the JAX package's per-call ladder
-    (`voronoi_cells_device` per tier)."""
-    _check_cell_impl(cell_impl)
-    tiers = _tiers_for(cell_impl, tiers)
-    points = np.asarray(points)
-    P = len(points)
-    sel_rows = np.arange(num) if rows is None else np.asarray(rows, int)
-    k0, ks0 = tiers[0][:2]
-    out = voronoi_cells_device(
-        points, box_l, num, k=k0, k_search=ks0, row_block=row_block,
-        centers_idx=None if rows is None else sel_rows, cell_impl=cell_impl, device=device,
-    )
-    out = {key: _np(v) for key, v in out.items()}
-    cert = out["certified"].copy()  # in sel_rows space
-    vol = np.zeros(num)
-    area = np.zeros(num)
-    vol[sel_rows] = out["vol"].astype(np.float64)
-    area[sel_rows] = out["area"].astype(np.float64)
-    block = np.zeros((len(sel_rows), num))
-    _scatter_contact_rows(block, out, np.arange(len(sel_rows)), cert, P, num)
-    _escalate_and_close(points, box_l, num, vol, area, cert, [(sel_rows, out)], tiers[1:],
-                        row_block, fallback_k, device,
-                        torch.float64 if points.dtype == np.float64 else torch.float32,
-                        cell_impl, rows=sel_rows, block=block)
-    return (*_contacts_result(block, sel_rows, vol, area, num, dense=True), int(cert.sum()))
+    A frame batch of one frame."""
+    return next(_contacts_frames(np.asarray(points)[None], [box_l], num, rows, tiers, row_block,
+                                 fallback_k, cell_impl, device, dense=True))
 
 
 def _contacts_frames(pos_batch, box_ls, num, rows, tiers, row_block, fallback_k, cell_impl,
@@ -1622,7 +1495,7 @@ def _contacts_frames(pos_batch, box_ls, num, rows, tiers, row_block, fallback_k,
     stage_end("H2D")
     eps, win, mb, cg = _batch_static_config(pos_batch, box_ls, k0, ks0, pb.dtype)
     out = _tier1_frames_local(pb, bl, num, k0, ks0, row_block, float(eps), int(win), mb, cg,
-                              cell_impl, sel=sel_rows)
+                              cell_impl, sel=None if rows is None else sel_rows)
     tier1 = {key: _np(out[key]) for key in _CONTACTS_TIER1_KEYS}
     log_once(("voronoi_contacts_frames", cg is not None, mb > 0),
              "voronoi contacts tier-1 frame batch: topk=%s mirrors=%s (F=%d, rows=%d)",
@@ -1632,10 +1505,10 @@ def _contacts_frames(pos_batch, box_ls, num, rows, tiers, row_block, fallback_k,
     vol_b = tier1["vol"].astype(np.float64)
     area_b = tier1["area"].astype(np.float64)
     faces = [[] for _ in range(F)]
-    vol_b, area_b, cert_b, payload = _escalate_frames_batched(
+    vol_b, area_b, cert_b, last = _escalate_frames_batched(
         pos_batch, box_ls, vol_b, area_b, cert1.copy(), tiers[1:], pb, bl, cell_impl,
         rows=sel_rows, faces=faces)
-    for t in range(F):
+    for t, cand in enumerate(_left_candidates(out, last, cert_b)):
         tier1_t = {key: v[t] for key, v in tier1.items()}
         vol, area = np.zeros(num), np.zeros(num)
         vol[sel_rows], area[sel_rows] = vol_b[t], area_b[t]
@@ -1644,8 +1517,8 @@ def _contacts_frames(pos_batch, box_ls, num, rows, tiers, row_block, fallback_k,
         for pos, fa, fn, ni in faces[t]:
             _scatter_contact_rows(block, {"face_area": fa, "face_nverts": fn, "nbr_idx": ni},
                                   pos, np.ones(len(pos), bool), P, num)
-        _host_close(pos_batch[t], float(box_ls[t]), num, sel_rows, cert_b[t], vol, area,
-                    [(sel_rows, tier1_t)] + payload[t], fallback_k, pb.dtype, block)
+        _host_close(pos_batch[t], float(box_ls[t]), num, sel_rows, cert_b[t], vol, area, cand,
+                    fallback_k, pb.dtype, block)
         stage_end("host close")
         res = _contacts_result(block, sel_rows, vol, area, num, dense)
         stage_end("contact assembly")
@@ -1667,8 +1540,8 @@ def voronoi_contacts_hybrid_frames(
     """Frame-batched `voronoi_contacts_hybrid`: tier-1 cells (with their
     faces) for all frames in one search launch and one cell build, the
     escalation ladder once per tier for the whole batch (each tier's
-    certified rows keep their faces), then per frame the host close on the
-    last tier's candidates and the contact assembly.
+    certified rows keep their faces), then per frame the host close on
+    each row's latest tier's candidates and the contact assembly.
 
     Generator: yields per frame (contacts (num, num), atom_area (1, num),
     wat_area (1, num), atom_vol (1, num), n_certified), so callers never
