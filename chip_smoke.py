@@ -125,7 +125,9 @@ Phases (each raises on failure; nothing is caught):
    `voronoi_calc(engine=
    "device")` on `make_water_box(12288, 32 frames, 6-atom solute)` in two
    chunks of 16 (tier 1 on the cell-grid form; the certified count of each
-   tier and the host closes printed), frames 0-1 against Qhull in float64
+   tier and the host closes printed; the cell kernel, in dedup "always",
+   launched once a chunk at each tier up to (64, 128) on its real rows,
+   `kernel_rows`: the kernels line's launches), frames 0-1 against Qhull in float64
    (every cell within 1.5e-3) and the host engine, `chunk_frames=1` equal
    to one chunk; `voronoi_calc` at 2,048 waters x 16 frames (tier 1 on
    the window form); each form's time at its main-path launch beside its
@@ -148,15 +150,21 @@ Phases (each raises on failure; nothing is caught):
    candidates), on a 2,048-row subset at (40, 96), on the 6^3 cubic lattice
    (the tangency test dedups the interior rows; every cell certified at
    a^3) and with dedup "always" (the plain version is the clip builder);
-   its time beside its bound and plain version (the kernel's own device
-   time too), also at (40, 96), and 256 of those rows scaled by 2^-20
+   its dedup "auto" time beside its bound and plain version at tier 1 and
+   (40, 96) (the kernel's own device time there), and 256 of those rows scaled by 2^-20
    (the kernel's exact-division path); tier-1 cells certified by
    both builders within 1e-5 but where the clip builder's dedup merged a
    small face (named, both within 1.5e-3 of the host cell in float64);
+   the clip builder on the kernel: every launch of the chunk's
+   `voronoi_volumes_hybrid_frames` (tier 1, (48, 96), (64, 128)) in dedup
+   "always" equal to the PyTorch clip builder on every key (torch.equal),
+   with both times (tier 1's, with the kernel's own device time and its
+   bound, are the kernels line's);
    `voronoi_volumes_hybrid_frames` on the chunk under cell_impl "pallas"
-   (the kernel serves tier 1 alone, one launch) and "clip", against each
+   (the fused rule at tier 1) and "clip", the kernel launched once at each
+   tier up to (64, 128) on its real rows (`kernel_rows`), against each
    other and Qhull, and a warm call of each on the stage clock; one more
-   warm "pallas" call under torch.profiler: device time by kernel name and
+   warm "clip" call under torch.profiler: device time by kernel name and
    the card's busy share;
    `voronoi_contacts_hybrid_frames` at 12,294 points x 16
    frames x rows 0-511 under both, against each other, frames 0-1 against
@@ -1771,7 +1779,10 @@ def _device_us(ev):
 
 
 def _is_kernel(ev):
-    """A device activity (a kernel or a copy), not a host operator."""
+    """A device activity (a kernel or a copy), not a host operator, nor the
+    port's own `wol.*` ranges, which the profiler lists on the device too."""
+    if ev.key.startswith("wol."):
+        return False
     kind = getattr(ev, "device_type", None)
     if kind is not None:
         return "CUDA" in str(kind)
@@ -2036,20 +2047,24 @@ def _voronoi_phases(card, kernels, errs, launches, times):
     versions; voronoi_calc(engine="device") at 12,294 points x 32 frames in
     two chunks of 16 (tier 1 and the escalation tiers on the cell-grid
     form; the last tier, if any row reaches it, on the window form's full
-    scan), against Qhull in float64 and the host engine on frames 0-1, and
-    chunk_frames=1 against 16 on 2 frames; voronoi_calc at 2,048 waters x
+    scan; the clip builder's cells on the cell kernel at every tier up to
+    (64, 128), its launches the kernels line's), against Qhull in float64
+    and the host engine on frames 0-1, and chunk_frames=1 against 16 on 2
+    frames; voronoi_calc at 2,048 waters x
     16 frames (tier 1 on the window form, pruned mirrors); each form's
     times at its main-path launches beside its bound, its plain version and
     torch.topk; a warm voronoi_calc on the stage clock."""
     import numpy as np
     import torch
     from waterorderlib_tpu_torch.drivers.voronoi_driver import voronoi_calc
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_cells as vcells
     from waterorderlib_tpu_torch.surface import voronoi_device as vd
     from waterorderlib_tpu_torch.surface.voronoi import voronoi_volumes
 
     dev = torch.device("cuda")
     _voronoi_kernel_checks(card, kernels, errs)
     ck, cp = kernels["voronoi_cellgrid_topk"]
+    kernels["voronoi_cells"] = (vcells.voronoi_cells_fused, vcells.voronoi_cells_fused_plain)
 
     top, traj, heavy, nw = _vor_system(VOR_N, VOR_FRAMES, 0, VOR_SOLUTE)
 
@@ -2063,6 +2078,11 @@ def _voronoi_phases(card, kernels, errs, launches, times):
         f"voronoi_calc {len(heavy)} points x {VOR_FRAMES} frames (engine device, chunks of 16)",
         kernels, lambda: calc(top, traj, engine="device"))
     launches["voronoi_cellgrid_topk"] = ran["voronoi_cellgrid_topk"]
+    launches["voronoi_cells"] = ran["voronoi_cells"]
+    _check(set(v["cells"] for k, v in tiers.items() if k != "host") == {"clip"}
+           and _on_kernel_whole(ran, tiers, VOR_FRAMES * nw),
+           f"voronoi_calc: the cell kernel did not build the clip builder's cells once a chunk at "
+           f"each tier up to k {vcells.MAX_K}, on its real rows: {ran}, {tiers}")
     t1 = tiers.get((32, 64), {})
     _check(t1.get("form") == "cellgrid" and ran["voronoi_cellgrid_topk"] >= 2,
            f"tier 1 at {len(heavy)} points was not served by the cell-grid form: {t1}")
@@ -2289,17 +2309,19 @@ def _cells_cmp(label, args, mode, errs):
     return got
 
 
-def _cells_bound_ms(args, got):
+def _cells_bound_ms(args, got, always=False):
     """Least time of one fused-cell launch: the operations its code must do
     on these rows (the CELL_* counts; edges and dedup comparisons from the
-    data) over the float32 peak, or the bytes (rel, valid and the flag read
-    once, the outputs written once) over the memory rate."""
+    data, the comparisons on the boundary rows, or on every row in dedup
+    mode "always") over the float32 peak, or the bytes (rel, valid and the
+    flag read once, the outputs written once) over the memory rate."""
     rel, _, isb, k = args
     R, ks = rel.shape[0], rel.shape[1]
     P = k * (k - 1) // 2
     nv = got["face_nverts"].double()
     edges = float(nv.sum()) / 2.0
-    compares = float((nv * (nv - 1) / 2)[isb].sum())
+    pairs = nv * (nv - 1) / 2
+    compares = float(pairs.sum() if always else pairs[isb].sum())
     ops = (R * (ks * CELL_CAND_FLOPS + P * (CELL_PAIR_FLOPS + k * CELL_PLANE_FLOPS + CELL_POST_FLOPS)
                 + k * (k - 1) * CELL_SLOT_FLOPS)
            + edges * (ks - k) * CELL_CHECK_FLOPS + compares * CELL_DEDUP_FLOPS)
@@ -2349,17 +2371,99 @@ def _builders_agree(args, d_far, got, clip):
            "voronoi_cells: co-certified cells differ from the clip builder")
 
 
+def _on_kernel_whole(ran, tiers, n_first):
+    """Whether the cell kernel built every tier it holds (k <= MAX_K) and
+    none beyond: one launch each time such a tier ran (`ran` against the
+    tiers' `launches`), and `kernel_rows` counting every real row there:
+    tier 1's n_first rows, then at each tier the rows the tiers before left
+    uncertified (no bucket padding)."""
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_cells as vcells
+
+    ladder = [(key, v) for key, v in tiers.items() if key != "host"]
+    if ran["voronoi_cells"] != sum(v["launches"] for key, v in ladder if key[0] <= vcells.MAX_K):
+        return False
+    left = n_first
+    for key, v in ladder:
+        if v["kernel_rows"] != (left if key[0] <= vcells.MAX_K else 0):
+            return False
+        left -= v["certified"]
+    return True
+
+
+def _clip_on_kernel_cmp(card, pos, box, nw, errs, times):
+    """The clip builder on the cell kernel: every `voronoi_cells_fused`
+    launch of voronoi_volumes_hybrid_frames (cell_impl "clip") on a
+    16-frame chunk, captured (tier 1 and each escalation tier up to (64,
+    128)), in dedup "always" and equal to the PyTorch clip builder
+    (`_clip_cells`) on every key with torch.equal; the kernel's time beside
+    the builder's at each. The tier-1 launch, the main path's largest, gives
+    the kernels line its times: the kernel, its own device time, its plain
+    version (the clip builder) and its bound."""
+    import torch
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_cells as vcells
+    from waterorderlib_tpu_torch.surface import voronoi_device as vd
+
+    real, seen = vcells.voronoi_cells_fused, []
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    vcells.voronoi_cells_fused = record
+    try:
+        vd.voronoi_volumes_hybrid_frames(pos, box, nw, device="cuda")
+    finally:
+        vcells.voronoi_cells_fused = real
+    shapes = [(args[3], args[0].shape[1]) for args, _ in seen]
+    _check(shapes[:1] == [(32, 64)] and (48, 96) in shapes and (64, 128) in shapes
+           and all(kw == {"dedup_mode": "always"} for _, kw in seen),
+           f"cell_impl clip: the kernel's launches of a {VOR_CHUNK}-frame chunk: {shapes}, "
+           f"{[kw for _, kw in seen]}")
+    for (rel, ok, flag, k, eps), kw in seen:
+        got = real(rel, ok, flag, k, eps, **kw)
+        want = vd._clip_cells(rel, ok, k, eps)
+        torch.cuda.synchronize()
+        differ = [key for key in want if not torch.equal(got[key], want[key])]
+        ms = _ms(lambda *a: real(*a, **kw), (rel, ok, flag, k, eps), 5)
+        clip_ms = _ms(vd._clip_cells, (rel, ok, k, eps), 1)
+        print(f"[kernel] voronoi_cells dedup always against the PyTorch clip builder at ({k}, "
+              f"{rel.shape[1]}), {rel.shape[0]} rows ({int(flag.sum())} boundary) of a "
+              f"{VOR_CHUNK}-frame chunk at {pos.shape[1]} points: equal to the bit on every key: "
+              f"{not differ}{f' (differ: {differ})' if differ else ''}; ok "
+              f"{int(got['ok_shape'].sum())}", flush=True)
+        print(f"[time] voronoi_cells dedup always at ({k}, {rel.shape[1]}), {rel.shape[0]} rows: "
+              f"kernel {ms:.5f} ms, PyTorch clip builder {clip_ms:.3f} ms; {card}", flush=True)
+        if (k, rel.shape[1]) == (32, 64):
+            alone = _device_ms(lambda *a: real(*a, **kw), (rel, ok, flag, k, eps),
+                               "voronoi_cells_kernel")
+            bound, bound_by = _cells_bound_ms((rel, ok, flag, k), got, always=True)
+            times["voronoi_cells"] = (ms, clip_ms, bound, bound_by, None)
+            print(f"[time] voronoi_cells, the main path's tier 1 (dedup always, {rel.shape[0]} "
+                  f"rows, {float(got['face_nverts'].sum()) / 2:.0f} edges): kernel {ms:.5f} ms "
+                  f"(alone on the card {alone:.5f} ms), plain (the clip builder) {clip_ms:.3f} "
+                  f"ms, bound {bound:.5f} ms ({bound_by}); no library call computes it; {card}",
+                  flush=True)
+        _check(not differ, f"voronoi_cells always at ({k}, {rel.shape[1]}) differs from the "
+                           f"clip builder: {differ}")
+        errs["voronoi_cells"].append(0.0)
+        del got, want
+    del seen
+    torch.cuda.empty_cache()
+
+
 def _voronoi_cells_phases(card, kernels, errs, launches, times):
-    """The fused cell kernel (csrc/voronoi_cells.cu) against its plain
+    """The clip builder's launches on the kernel first (`_clip_on_kernel_cmp`,
+    which times the main path's tier 1 for the kernels line); then the
+    fused cell kernel (csrc/voronoi_cells.cu) against its plain
     version at tier 1 of a 16-frame chunk of 12,294 points (196,608 rows at
     (32, 64), cell-grid candidates), on a 2,048-row subset at (40, 96), on
     the 6^3 cubic lattice (interior rows carry no boundary flag: the
     tangency test must dedup them, and every cell certify at a^3), and with
-    dedup "always" against the clip builder; its time beside its bound and
-    plain version; tier-1 cells certified by both builders against each
-    other; voronoi_volumes_hybrid_frames(cell_impl="pallas") on the chunk
-    against "clip" and, frames 0-1, Qhull in float64; a warm call of each
-    on the stage clock."""
+    dedup "always" against the clip builder; its dedup "auto" time beside
+    its bound and plain version; tier-1 cells certified by both builders
+    against each other; voronoi_volumes_hybrid_frames(cell_impl="pallas") on the
+    chunk against "clip" and, frames 0-1, Qhull in float64; a warm call of
+    each on the stage clock; one warm "clip" chunk under torch.profiler."""
     import numpy as np
     import torch
     from waterorderlib_tpu_torch.ops.cuda import voronoi_cells as vcells
@@ -2370,20 +2474,25 @@ def _voronoi_cells_phases(card, kernels, errs, launches, times):
     kk, kp = vcells.voronoi_cells_fused, vcells.voronoi_cells_fused_plain
     kernels["voronoi_cells"] = (kk, kp)
     _, traj, heavy, nw = _vor_system(VOR_N, VOR_CHUNK, 0, VOR_SOLUTE)
+    pos16 = traj.positions[:, heavy]
+    box16 = traj.boxes[:, 0].astype(np.float64)
+    # first, so that the main path's tier-1 device time is read before the
+    # profiler starts losing events late in the process (`_device_ms`)
+    _clip_on_kernel_cmp(card, pos16, box16, nw, errs, times)
     pb = torch.as_tensor(traj.positions[:, heavy], device=dev)
     bl = torch.as_tensor(traj.boxes[:, 0], device=dev)
     args, d_far, cg = _cells_args(vd, pb, bl, 32, 64, n_centers=nw)
     got = _cells_cmp(f"tier 1 of a {VOR_CHUNK}-frame chunk at {len(heavy)} points (32, 64), grid {cg}",
                      args, "auto", errs)
+    # dedup "auto" (cell_impl "pallas"), a side line: the main path runs
+    # "always" (`_clip_on_kernel_cmp`)
     ms = _ms(kk, (*args, 1e-4), 5)
     plain_ms = _ms(kp, (*args, 1e-4), 1)
-    alone = _device_ms(kk, (*args, 1e-4), "voronoi_cells_kernel")
     bound, bound_by = _cells_bound_ms(args, got)
-    times["voronoi_cells"] = (ms, plain_ms, bound, bound_by, None)
-    print(f"[time] voronoi_cells, tier 1 of a {VOR_CHUNK}-frame chunk ({args[0].shape[0]} rows, (32, 64), "
-          f"{int(args[2].sum())} boundary rows, {float(got['face_nverts'].sum()) / 2:.0f} edges): "
-          f"kernel {ms:.5f} ms (alone on the card {alone:.5f} ms), plain {plain_ms:.3f} ms, bound "
-          f"{bound:.5f} ms ({bound_by}); no library call computes it; {card}", flush=True)
+    print(f"[time] voronoi_cells dedup auto, tier 1 of a {VOR_CHUNK}-frame chunk "
+          f"({args[0].shape[0]} rows, (32, 64), {int(args[2].sum())} boundary rows, "
+          f"{float(got['face_nverts'].sum()) / 2:.0f} edges): kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by}); {card}", flush=True)
     # tier-1 cells certified by both builders
     _builders_agree(args, d_far, got, vd._clip_cells(args[0], args[1], 32, 1e-4))
     # dedup "always": the plain version is the clip builder itself
@@ -2431,8 +2540,6 @@ def _voronoi_cells_phases(card, kernels, errs, launches, times):
     torch.cuda.empty_cache()
 
     # the volumes frame batch under both builders
-    pos16 = traj.positions[:, heavy]
-    box16 = traj.boxes[:, 0].astype(np.float64)
     res = {}
     for impl in ("pallas", "clip"):
         res[impl], ran, tiers, wall = _vor_drive(
@@ -2440,13 +2547,15 @@ def _voronoi_cells_phases(card, kernels, errs, launches, times):
             kernels, lambda: vd.voronoi_volumes_hybrid_frames(pos16, box16, nw, cell_impl=impl,
                                                               device="cuda"))
         cells = {k: v.get("cells") for k, v in tiers.items() if k != "host"}
+        _check(_on_kernel_whole(ran, tiers, VOR_CHUNK * nw),
+               f"cell_impl {impl}: the kernel did not serve every tier up to k {vcells.MAX_K} "
+               f"once on its real rows: {ran}, {tiers}")
         if impl == "pallas":
-            _check(cells[(32, 64)] == "pallas" and ran["voronoi_cells"] == 1
+            _check(cells[(32, 64)] == "pallas"
                    and all(v == "clip" for k, v in cells.items() if k != (32, 64)),
-                   f"cell_impl pallas: the kernel did not serve tier 1 alone: {cells}, {ran}")
+                   f"cell_impl pallas: the fused rule did not serve tier 1 alone: {cells}")
         else:
-            _check(ran["voronoi_cells"] == 0 and set(cells.values()) == {"clip"},
-                   f"cell_impl clip launched the fused kernel: {ran}")
+            _check(set(cells.values()) == {"clip"}, f"cell_impl clip: builders {cells}")
     (vp, ap, np_), (vc_, ac_, nc_) = res["pallas"], res["clip"]
     gap = max(float(np.max(np.abs(vp - vc_) / vc_)), float(np.max(np.abs(ap - ac_) / ac_)))
     worst = 0.0
@@ -2465,9 +2574,8 @@ def _voronoi_cells_phases(card, kernels, errs, launches, times):
                                                            device="cuda"))
     # the card's view of one warm chunk: kernel time by name, busy share
     _profile_line(f"voronoi_volumes_hybrid_frames {len(heavy)} points x {VOR_CHUNK} frames, "
-                  f"cell_impl pallas (warm); {card}",
-                  lambda: vd.voronoi_volumes_hybrid_frames(pos16, box16, nw, cell_impl="pallas",
-                                                           device="cuda"))
+                  f"cell_impl clip (warm); {card}",
+                  lambda: vd.voronoi_volumes_hybrid_frames(pos16, box16, nw, device="cuda"))
     del pb, bl
     torch.cuda.empty_cache()
 
@@ -2493,7 +2601,7 @@ def _driver_means(name, res):
     return np.asarray([res[0][0], res[1][0]], np.float64)
 
 
-def _voronoi_contacts_phases(card, kernels, errs, launches):
+def _voronoi_contacts_phases(card, kernels, errs):
     """The Voronoi contacts slice: voronoi_contacts_hybrid_frames at 12,294
     points x 16 frames with rows 0-511 (scripts/perf_round5_tpu.py's
     production shape) under cell_impl "pallas" (tier 1 on the fused kernel,
@@ -2508,6 +2616,7 @@ def _voronoi_contacts_phases(card, kernels, errs, launches):
         hydrated_volume_calc,
     )
     from waterorderlib_tpu_torch.io.synthetic import make_water_box
+    from waterorderlib_tpu_torch.ops.cuda import voronoi_cells as vcells
     from waterorderlib_tpu_torch.surface import voronoi_device as vd
     from waterorderlib_tpu_torch.surface.voronoi import voronoi_contacts
 
@@ -2529,13 +2638,12 @@ def _voronoi_contacts_phases(card, kernels, errs, launches):
             f"voronoi_contacts_hybrid_frames {num} points x {VOR_CHUNK} frames, rows {VOR_CONTACT_ROWS}, "
             f"cell_impl {impl}", kernels, lambda: run(impl))
         cells = {k: v.get("cells") for k, v in tiers.items() if k != "host"}
+        _check(_on_kernel_whole(ran, tiers, VOR_CHUNK * VOR_CONTACT_ROWS),
+               f"contacts, cell_impl {impl}: the kernel did not serve every tier up to k "
+               f"{vcells.MAX_K} once on its real rows: {ran}, {tiers}")
         if impl == "pallas":
-            launches["voronoi_cells"] = ran["voronoi_cells"]
-            _check(cells[(32, 64)] == "pallas" and ran["voronoi_cells"] == 1
-                   and ran["voronoi_cellgrid_topk"] >= 1,
-                   f"contacts, cell_impl pallas: tier 1 not on the fused kernel: {cells}, {ran}")
-        else:
-            _check(ran["voronoi_cells"] == 0, "contacts, cell_impl clip launched the fused kernel")
+            _check(cells[(32, 64)] == "pallas" and ran["voronoi_cellgrid_topk"] >= 1,
+                   f"contacts, cell_impl pallas: tier 1 not on the fused rule: {cells}, {ran}")
         print(f"[slice] contacts {impl}: certified per tier "
               + ", ".join(f"{k}: {v.get('certified', 0)} of {v['rows']} ({v['form']}, "
                           f"{v.get('cells')})" for k, v in tiers.items() if k != "host")
@@ -3483,7 +3591,7 @@ def main() -> int:
     # Voronoi contacts slice
     _voronoi_phases(card, kernels, errs, launches, times)
     _voronoi_cells_phases(card, kernels, errs, launches, times)
-    _voronoi_contacts_phases(card, kernels, errs, launches)
+    _voronoi_contacts_phases(card, kernels, errs)
 
     # the redesigned q and split LSI kernels', the H-bond and K=24 LSI
     # kernels' and the Voronoi window search's device time alone, each group

@@ -172,7 +172,7 @@ def test_registry_backs_the_legacy_counts(run):
         assert counts[f"tier:{entry}:{tier}"] == 1
     else:  # tier_stats reads the registry's Voronoi counters
         for (k, ks), entry in ((key, v) for key, v in tiers.items() if key != "host"):
-            for field in ("launches", "rows", "certified"):
+            for field in ("launches", "rows", "certified", "kernel_rows"):
                 assert counts[f"voronoi:{k}x{ks}:{field}"] == entry[field]
         esc = [v for key, v in tiers.items() if key != "host" and key != (32, 64)]
         assert counts.get("voronoi:escalation:rows", 0) == sum(v["rows"] for v in esc)

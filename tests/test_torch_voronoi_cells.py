@@ -16,6 +16,8 @@ builder tolerances (tests/test_torch_voronoi_device.py): flags equal but
 for listed flips (at most 1% of rows), vol, area and r_cell within 1e-5.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -157,7 +159,7 @@ def test_input_checks(monkeypatch):
     with pytest.raises(ValueError):
         vc.voronoi_cells_fused(rel, valid, flag.int(), 32, 1e-4)
     with pytest.raises(ValueError):
-        vc.voronoi_cells_fused(rel, valid, flag, 49, 1e-4)
+        vc.voronoi_cells_fused(rel, valid, flag, 65, 1e-4)
     with pytest.raises(ValueError):
         vc.voronoi_cells_fused(torch.zeros((4, 130, 3)), torch.ones((4, 130), dtype=torch.bool),
                                flag, 32, 1e-4)
@@ -174,7 +176,9 @@ def test_input_checks(monkeypatch):
 def test_pallas_serves_the_fitting_tiers():
     """cell_impl="pallas" builds with the fused kernel's plain version at the
     tiers `fits_voronoi_cells` admits (tier 1 of both ladders) and with the
-    clip builder elsewhere; volumes within 1e-5 of cell_impl="clip"."""
+    clip builder elsewhere; volumes within 1e-5 of cell_impl="clip". On CPU
+    "clip" never calls the kernel's plain version, and no tier counts rows
+    built on the CUDA kernel (`kernel_rows`)."""
     pts, box_l = _water_points(300, seed=3)
     pts = pts.astype(np.float32)
     res = {}
@@ -183,6 +187,7 @@ def test_pallas_serves_the_fitting_tiers():
         before = vc.voronoi_cells_fused_plain.calls
         res[impl] = tvd.voronoi_volumes_hybrid(pts, box_l, 300, cell_impl=impl, device="cpu")
         cells = {key: v["cells"] for key, v in tvd.tier_stats.items() if key != "host"}
+        assert all(v["kernel_rows"] == 0 for key, v in tvd.tier_stats.items() if key != "host")
         calls = vc.voronoi_cells_fused_plain.calls - before
         if impl == "pallas":
             assert cells[(32, 64)] == "pallas" and calls == 1
@@ -244,7 +249,7 @@ def test_triple_hybrid_and_warning_once(caplog):
 
 def test_pair_table_is_pair_tables():
     """The kernel's pair table (i | j << 8 a pair) lists `_pair_tables(k)`'s
-    pairs in its order, the port's and the JAX package's, for k = 2..48; the
+    pairs in its order, the port's and the JAX package's, for k = 2..64; the
     kernel's closed form for face f's slot e (the other plane e, or e + 1
     from e = f on; the pair id i (2k - i - 1) / 2 + j - i - 1) gives its
     face_pairs and face_other."""
@@ -265,8 +270,9 @@ def test_pair_table_is_pair_tables():
 def test_shared_memory_fits_every_accepted_shape():
     """The dynamic shared memory the wrapper asks for, rows_per_block(k, ks)
     rows of row_bytes(k, ks), stays within one block's 232,448 B for every
-    (k, ks) the checks accept; (32, 64) takes 13,504 B a row, one row a
-    block (16 an SM), as does (40, 96) (10 an SM)."""
+    (k, ks) the checks accept (k = 2..64, ks = k..128); (32, 64) takes
+    13,504 B a row, one row a block (16 an SM), as does (40, 96) (10 an SM)
+    and (64, 128), the largest row, 51,712 B (4 an SM)."""
     assert vc.SMEM_MAX == 232_448
     for k in range(2, vc.MAX_K + 1):
         for ks in range(k, vc.MAX_KS + 1):
@@ -275,3 +281,97 @@ def test_shared_memory_fits_every_accepted_shape():
             assert vc.row_bytes(k, ks) % 16 == 0
     assert vc.row_bytes(32, 64) == 13_504 and vc.rows_per_block(32, 64) == 1
     assert vc.rows_per_block(40, 96) == 1
+    assert vc.MAX_K == 64
+    assert vc.row_bytes(64, 128) == 51_712 and vc.rows_per_block(64, 128) == 1
+
+
+@pytest.mark.parametrize("k,ks,dev,dtype,want", [
+    (32, 64, "cuda", torch.float32, True),
+    (40, 96, "cuda", torch.float32, True),
+    (48, 96, "cuda", torch.float32, True),
+    (64, 128, "cuda", torch.float32, True),
+    (96, 192, "cuda", torch.float32, False),
+    (128, 256, "cuda", torch.float32, False),
+    (32, 64, "cuda", torch.float64, False),
+    (64, 128, "cuda", torch.float64, False),
+    (32, 64, "cpu", torch.float32, False),
+    (64, 128, "cpu", torch.float32, False),
+])
+def test_clip_on_kernel_rule(k, ks, dev, dtype, want):
+    """The clip builder's rows go to the cell kernel in dedup mode "always"
+    exactly where they are CUDA float32 and the tier fits the kernel (every
+    tier of both ladders up to (64, 128)); "pallas" keeps its "auto" rule
+    and "triple" its PyTorch builder on every device."""
+    assert tvd._clip_on_kernel(dev, dtype, k, ks) is want
+    rows = SimpleNamespace(device=torch.device(dev), dtype=dtype, shape=(0, ks, 3))
+    assert tvd._cell_kernel_mode("clip", rows, k) == ("always" if want else None)
+    assert tvd._cell_kernel_mode("pallas", rows, k) == "auto"
+    assert tvd._cell_kernel_mode("triple", rows, k) is None
+
+
+def test_always_at_64_is_the_clip_builder():
+    """At the widest tier the kernel now holds, (64, 128), on 160 liquid
+    points: the wrapper admits k = 64 and, in dedup mode "always", returns
+    the port's clip builder key by key (on CPU tensors it runs that builder,
+    so this part checks the wrapper's bound and routing); and the port's
+    clip arithmetic at (64, 128) against the JAX package's vmapped
+    `_cell_moments_clip` on the same candidates, at the triple builder's
+    tolerances above (flags equal but for at most 1% of rows; vol, area and
+    r_cell within 1e-5; face vertex counts equal and face areas within 1e-5
+    of the cell's area where both are ok)."""
+    import jax
+
+    pts, box_l = _water_points(160, seed=7)
+    rel_all, rel_parked, valid, is_b, _ = _kernel_inputs(pts, box_l, 64, 128)
+    rel, ok, flag = interop.voronoi_cells_inputs_from_jax(rel_parked, valid, is_b, "cpu")
+    clip = tvd._clip_cells(rel, ok, 64, 1e-4)
+    always = vc.voronoi_cells_fused(rel, ok, flag, 64, 1e-4, dedup_mode="always")
+    assert set(always) == set(clip)
+    for key in clip:
+        assert torch.equal(always[key], clip[key]), key
+    out = {key: v.numpy() for key, v in always.items()}
+    ref = jax.vmap(lambda r, o: jvd._cell_moments_clip(r, o, 64, 1e-4))(
+        jnp.asarray(rel_all), jnp.asarray(valid))
+    ref = {key: np.asarray(v) for key, v in ref.items()}
+    flips = np.where(out["ok_shape"] != ref["ok_shape"])[0]
+    assert len(flips) <= 0.01 * len(pts), flips
+    both = out["ok_shape"] & ref["ok_shape"]
+    assert both.sum() >= 0.5 * len(pts)
+    for key in ("vol", "area", "r_cell"):
+        assert _rel(out[key][both], ref[key][both]) <= REL, key
+    np.testing.assert_array_equal(out["face_nverts"][both], ref["face_nverts"][both])
+    gap = np.abs(out["face_area"][both] - ref["face_area"][both]).max(1)
+    assert np.all(gap <= REL * ref["area"][both])
+
+
+@pytest.mark.parametrize("entry", ["volumes", "contacts"])
+def test_clip_routed_through_the_cell_kernel_is_bit_identical(monkeypatch, entry):
+    """The clip builder's route through `voronoi_cells_fused` (its inputs
+    parked by `_fused_inputs`, escalation subsets without their bucket
+    padding), forced on CPU tensors where the wrapper runs its plain
+    version: every result equal to the PyTorch builder's to the bit, with
+    the same tiers, rows and certified counts, the `cells` labels "clip",
+    and one plain call at each tier up to (64, 128)."""
+    pts, box_l = _water_points(300, seed=3)
+    pts = pts.astype(np.float32)
+    sel = np.arange(0, 300, 7)
+
+    def call():
+        tvd.tier_stats.clear()
+        if entry == "volumes":
+            out = tvd.voronoi_volumes_hybrid(pts, box_l, 300, device="cpu")
+        else:
+            out = tvd.voronoi_contacts_hybrid(pts, box_l, 300, rows=sel, device="cpu")
+        return out, {key: dict(v) for key, v in tvd.tier_stats.items()}
+
+    ref, ref_tiers = call()
+    monkeypatch.setattr(tvd, "_clip_on_kernel", lambda dev, dtype, k, ks: k <= vc.MAX_K)
+    before = vc.voronoi_cells_fused_plain.calls
+    got, tiers = call()
+    assert tiers == ref_tiers
+    ladder = [key for key in tiers if key != "host"]
+    assert all(tiers[key]["cells"] == "clip" for key in ladder)
+    assert vc.voronoi_cells_fused_plain.calls - before == sum(key[0] <= 64 for key in ladder)
+    assert len(ladder) >= 2
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

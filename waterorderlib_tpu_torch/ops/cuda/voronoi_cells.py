@@ -1,6 +1,8 @@
 """Fused Voronoi cell moments: the CUDA kernel's wrapper and its plain
-PyTorch version (port of waterorderlib_tpu.ops.pallas.voronoi_cells,
-serving `cell_impl="pallas"` in waterorderlib_tpu_torch.surface.voronoi_device).
+PyTorch version (port of waterorderlib_tpu.ops.pallas.voronoi_cells). In
+waterorderlib_tpu_torch.surface.voronoi_device it builds the clip builder's
+cells on the card (`dedup_mode="always"`) at every tier it holds, and serves
+`cell_impl="pallas"` (`dedup_mode="auto"`).
 
 For each row (a cell): the clip builder's cell (surface/voronoi_device.py
 `_cell_moments_clip`) from the row's parked candidates, except that the
@@ -17,10 +19,11 @@ the kernel to the plain version. The plain version is the clip builder
 with the per-row dedup (`_faces_from_edges`); it is the kernel's arithmetic
 in PyTorch, so the two agree bit for bit.
 
-`fits_voronoi_cells` is the JAX package's fit predicate, kept as the port's
-tier rule: which builder serves a tier decides which rows certify there
-(the kernel skips dedup on rows that need none), so the port serves the
-tiers the JAX package gives its kernel and the clip builder elsewhere.
+`fits_voronoi_cells` is the JAX package's fit predicate, kept as the tier
+rule of `cell_impl="pallas"`: which dedup rule serves a tier decides which
+rows certify there (the "auto" rule skips dedup on rows that need none), so
+that builder takes the fused rule at the tiers the JAX package gives its
+kernel and the clip builder's elsewhere.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.ops.cuda import build, window
 
-MAX_K = 48  # kMaxK in csrc/voronoi_cells.cu: a face's slots are bits of one 64-bit mask
+MAX_K = 64  # kMaxK in csrc/voronoi_cells.cu: a face's k - 1 slots are bits of one 64-bit mask
 MAX_KS = 128  # kMaxKS: the row's candidates in shared memory
 DEDUP_MODES = ("auto", "always")
 SMEM_MAX = build.SMEM_MAX
@@ -69,7 +72,7 @@ def row_bytes(k: int, ks: int) -> int:
 def rows_per_block(k: int, ks: int) -> int:
     """Rows (one warp each) a block takes: the count that puts the most
     rows on an SM, the smaller on a tie (1 at (32, 64): 16 rows an SM; 1
-    at (40, 96): 10)."""
+    at (40, 96): 10; 1 at (64, 128): 4)."""
     def rows_on_sm(r):
         return r * (_SM_SMEM // (r * row_bytes(k, ks) + 1024))
 

@@ -1,10 +1,12 @@
 """Device Voronoi cells (port of waterorderlib_tpu.surface.voronoi_device):
 mirrored candidates, the K-nearest search on the hand-written kernel
 (ops/cuda/voronoi_topk.py, z-window and cell-grid forms), three cell
-builders (the clip builder in PyTorch, the default; the fused cell kernel
-ops/cuda/voronoi_cells.py under cell_impl="pallas"; the legacy triple
-builder in PyTorch), the exactness certificates, the escalation ladder, the
-host close, and the contact matrices built from the cells' faces.
+builders (the clip builder, the default, on the cell kernel
+ops/cuda/voronoi_cells.py in dedup mode "always" where the rows fit it and
+in PyTorch elsewhere; the fused dedup rule under cell_impl="pallas"; the
+legacy triple builder in PyTorch), the exactness certificates, the
+escalation ladder, the host close, and the contact matrices built from the
+cells' faces.
 
 The design is the JAX package's (see its module docstring): the candidate
 set is the points plus their single-axis reflections across the nearer box
@@ -62,8 +64,8 @@ from waterorderlib_tpu_torch.utils.logging import log_once
 _FAR = 1.0e6
 # the clip interval's "no bound" sentinel
 _BIG = 3.0e37
-# "clip" (the default, as in the JAX package), "pallas" (the fused cell
-# kernel, ops/cuda/voronoi_cells.py, at the tiers it fits) or "triple"
+# "clip" (the default, as in the JAX package), "pallas" (the fused dedup
+# rule of ops/cuda/voronoi_cells.py, at the tiers it fits) or "triple"
 DEFAULT_CELL_IMPL = "clip"
 CELL_IMPLS = ("clip", "pallas", "triple")
 # escalation ladder and the wide tier-1 alternative, as in the JAX package
@@ -133,9 +135,10 @@ def _check_cell_impl(cell_impl: str) -> None:
 
 
 def _tier_impl(cell_impl: str, k: int, k_search: int) -> str:
-    """The builder that serves a (k, k_search) tier: the fused kernel where
+    """The builder that serves a (k, k_search) tier: the fused rule where
     the JAX package's fit predicate holds for it, the clip builder
-    elsewhere under "pallas"."""
+    elsewhere under "pallas". Where its rows run (the cell kernel or
+    PyTorch) is `_cell_kernel_mode`'s to say."""
     if cell_impl == "pallas" and not vcells.fits_voronoi_cells(k, k_search):
         return "clip"
     return cell_impl
@@ -925,13 +928,37 @@ def _fused_inputs(rel_all, ok, nbr_idx, k, p4, n_real=None):
     return rel_parked, ok, (nbr_idx[:, :k] >= mirror_start).any(-1)
 
 
-def _build_cells(rel_all, ok, nbr_idx, k, eps, impl, p4, n_real):
-    """Cells of rows (R, K_search) by builder `impl`: the clip or triple
-    builder block by block, or the fused kernel in one launch on
-    `_fused_inputs`."""
+def _clip_on_kernel(device_type: str, dtype, k: int, k_search: int) -> bool:
+    """Whether the clip builder's cells of a (k, k_search) tier come from
+    the cell kernel in dedup mode "always", the clip builder's arithmetic
+    to the bit: CUDA float32 rows at a shape the kernel holds ((32, 64),
+    (40, 96), (48, 96) and (64, 128) of the ladders; (96, 192) and (128,
+    256) stay in PyTorch, as do CPU and float64 rows)."""
+    return (device_type == "cuda" and dtype == torch.float32 and k <= vcells.MAX_K
+            and k_search <= vcells.MAX_KS)
+
+
+def _cell_kernel_mode(impl: str, rel_all, k: int):
+    """The dedup mode in which `voronoi_cells_fused` builds rows rel_all
+    (R, K_search, 3) of builder `impl`, or None where the PyTorch builder
+    does: "auto" under "pallas" (its plain version on CPU tensors),
+    "always" for the clip builder's rows `_clip_on_kernel` admits."""
     if impl == "pallas":
+        return "auto"
+    if impl == "clip" and _clip_on_kernel(rel_all.device.type, rel_all.dtype, k,
+                                          rel_all.shape[1]):
+        return "always"
+    return None
+
+
+def _build_cells(rel_all, ok, nbr_idx, k, eps, impl, mode, p4, n_real):
+    """Cells of rows (R, K_search) by builder `impl`: on `voronoi_cells_fused`
+    in one launch on `_fused_inputs` in dedup mode `mode` (from
+    `_cell_kernel_mode`), or where it is None the clip or triple builder
+    block by block."""
+    if mode is not None:
         return vcells.voronoi_cells_fused(*_fused_inputs(rel_all, ok, nbr_idx, k, p4, n_real), k,
-                                          eps)
+                                          eps, dedup_mode=mode)
     return _clip_cells(rel_all, ok, k, eps,
                        builder=_cell_moments_triple if impl == "triple" else _cell_moments_clip)
 
@@ -946,23 +973,29 @@ def _cells_blocked(centers, ext, k, k_search, row_block, eps, win=None, cg=None,
     builder; n_real: the points leading ext, below the mirrors (None: the
     full 4P layout, p4 // 4). `stage`: the stage-clock prefix of the search
     and cells steps, if any. Returns a dict of (F, nc, ...) tensors;
-    `tier_stats` records the search form and the builder."""
+    `tier_stats` records the search form, the builder and the rows the
+    CUDA cell kernel built (`kernel_rows`: the real rows, 0 where PyTorch
+    built them)."""
     F, nc, p4 = centers.shape[0], centers.shape[1], ext.shape[1]
     (dist, idx, valid, win_cov), form, rel_all = _search_rows(centers, ext, k_search, row_block,
                                                                win, cg, box_l, stage)
     ok, ids = valid.reshape(F * nc, k_search), idx.reshape(F * nc, k_search)
     impl = _tier_impl(cell_impl, k, k_search)
+    mode = _cell_kernel_mode(impl, rel_all, k)
     if real is None:
-        out = _build_cells(rel_all, ok, ids, k, eps, impl, p4, n_real)
+        out = _build_cells(rel_all, ok, ids, k, eps, impl, mode, p4, n_real)
+        n_built = F * nc
     else:
         rows = torch.nonzero(real.reshape(-1))[:, 0]
-        part = _build_cells(rel_all[rows], ok[rows], ids[rows], k, eps, impl, p4, n_real)
+        part = _build_cells(rel_all[rows], ok[rows], ids[rows], k, eps, impl, mode, p4, n_real)
         out = {}
         for key, v in part.items():
             out[key] = torch.zeros((F * nc, *v.shape[1:]), dtype=v.dtype, device=v.device)
             out[key][rows] = v
+        n_built = len(rows)
     out = {key: v.reshape(F, nc, *v.shape[1:]) for key, v in out.items()}
-    _count((k, k_search), form=form, cells=impl, launches=1, rows=F * nc)
+    _count((k, k_search), form=form, cells=impl, launches=1, rows=F * nc,
+           kernel_rows=n_built if rel_all.is_cuda and mode is not None else 0)
     if stage:
         stage_end(f"{stage} cells")
     out["nbr_dist"] = dist
@@ -1031,7 +1064,8 @@ def voronoi_cells_device(
     indices into the full mirrored candidate set, r_cell, certified (num,)
     and the search's payload (nbr_dist, nbr_valid, win_covered; under
     pruning prune_margin). cell_impl: the builder ("clip", "pallas": the
-    fused kernel where `fits_voronoi_cells(k, k_search)` holds, "triple")."""
+    fused dedup rule where `fits_voronoi_cells(k, k_search)` holds,
+    "triple")."""
     _check_cell_impl(cell_impl)
     pb = _as_points(points, resolve_device(device))[None]
     if eps is None:
