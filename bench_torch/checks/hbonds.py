@@ -15,6 +15,7 @@ from bench_torch.reference.hbonds import counts_frames
 
 N_BINS = 10
 NAMES = ("count_out", "hist_excess", "mean_gap")
+FAULT_AT = ("waterorderlib_tpu_torch.ops.cuda.hbond", "hbond_dense")
 
 
 def capture(out):

@@ -15,6 +15,7 @@ from bench_torch.reference.lsi import lsi_frames
 
 N_BINS, LO, HI = 500, 0.0, 0.3
 NAMES = ("lsi_gap", "hist_excess", "mean_gap")
+FAULT_AT = ("waterorderlib_tpu_torch.ops.cuda.lsi", "lsi_window")
 
 
 def capture(out):

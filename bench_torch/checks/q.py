@@ -15,6 +15,7 @@ from bench_torch.reference.q import q_frames
 
 N_BINS, LO, HI = 500, 0.0, 1.0
 NAMES = ("q_gap", "hist_excess", "mean_gap")
+FAULT_AT = ("waterorderlib_tpu_torch.ops.cuda.qtet2", "q_window")
 
 
 def capture(out):

@@ -98,3 +98,13 @@ def max_gap(a, b) -> float:
         return float("inf")
     d = np.where(both, 0.0, np.abs(a - b))
     return float(d.max()) if d.size else 0.0
+
+
+def rel_gap(a, b) -> float:
+    """Largest |a - b| / |b| over the finite values of `b`; where `a` and
+    `b` are not finite in the same places, an infinite gap."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    finite = np.isfinite(b)
+    if not np.array_equal(finite, np.isfinite(a)):
+        return float("inf")
+    return float(np.max(np.abs(a[finite] - b[finite]) / np.abs(b[finite]))) if finite.any() else 0.0

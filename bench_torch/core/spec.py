@@ -14,9 +14,16 @@ metric sits in a file of its own under `bench_torch/`:
   wraps, the wrappers' launch and plain-call counters, the output check and
   its limits;
 - `metrics/<metric>.py`: the metric's reader, `read(run) -> float | None`;
-- `checks/<check>.py`: the comparison with the plain reference.
+- `checks/<check>.py`: the comparison with the plain reference: `NAMES`
+  (the numbers compared, each with a limit in the cell's file), `capture`,
+  `program_answers`, `reference_answers`, `compare`, and `FAULT_AT`, the
+  ("module", "attribute") of the kernel wrapper or dispatch whose output
+  the benchmark's tests alter to see the check fail;
+- `reference/<check>.py`: the plain reference the check compares with.
 
-A later cell, mix or metric is added by adding such files and entries.
+A later cell, mix, metric or check is added by adding such files and
+entries to `BENCHMARK.json`; no file already there needs an edit, since
+everything the harness and its tests know of a check is in its own module.
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ is compared with the plain reference; the numbers compared, each beside
 its limit, end standard error and the result line.
 
 Exits non-zero, printing no result, where torch finds no CUDA device or
-fewer than the cell asks for.
+fewer than the cell asks for, or where the process holds JAX or the JAX
+package once the window has closed (`foreign_modules`).
 """
 
 import time
@@ -385,6 +386,18 @@ class Run:
         return result
 
 
+# top-level modules that no run may load: the port runs without JAX, and
+# the JAX package (whose name the port's begins with) is not measured
+FOREIGN = frozenset({"jax", "jaxlib", "flax", "waterorderlib_tpu"})
+
+
+def foreign_modules(modules=None) -> list[str]:
+    """The top-level names in `modules` (default sys.modules) that are in
+    FOREIGN, compared whole."""
+    return sorted({m.split(".")[0] for m in (sys.modules if modules is None else modules)}
+                  & FOREIGN)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -404,6 +417,10 @@ def main(argv=None) -> int:
         return 3
     result = Run(spec.cell(args.workload), args.seed, args.seconds, bool(args.trace),
                  "cuda", bench).execute()
+    found = foreign_modules()
+    if found:
+        log(f"the run loaded {found}: no result")
+        return 4
     print(json.dumps(result), flush=True)
     return 0
 

@@ -28,12 +28,27 @@ def test_cell_files_load(w):
         assert isinstance(spec.attr(c)[2].calls, int)
     check = spec.check_module(cell["check"])
     assert set(cell["limits"]) == set(check.NAMES)
+    mod_name, name = check.FAULT_AT
+    assert spec.attr(f"{mod_name}:{name}")[2] is not None
     e2e, layer = spec.metrics_of(BENCH, w["name"])
     assert {m["name"] for m in e2e} >= {"setup_s", "frames_per_s"}
     assert layer
     for m in layer:
         if m["source"] == "program_span":
             assert m["name"] in cell["layers"], m["name"]
+
+
+@pytest.mark.parametrize("path", sorted((spec.BENCH / "checks").glob("[!_]*.py")),
+                         ids=lambda p: p.stem)
+def test_check_names_its_fault_point(path):
+    """Every check module says where the benchmark's tests plant a fault,
+    and that attribute exists in the program."""
+    check = spec.check_module(path.stem)
+    mod_name, name = check.FAULT_AT
+    _, _, target = spec.attr(f"{mod_name}:{name}")
+    assert callable(target)
+    assert set(check.NAMES) and all(callable(getattr(check, f)) for f in
+                                    ("capture", "program_answers", "reference_answers", "compare"))
 
 
 @pytest.mark.parametrize("key", ["loop", "population.rule"])

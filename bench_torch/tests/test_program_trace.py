@@ -30,13 +30,19 @@ def _tet_call():
         gather_stage = _span("stage:host gather", root, 0.0, 40.0)
         topo = _span("topology", gather_stage, 1.0, 4.0)
         sub = _span("topology", topo, 2.0, 3.0)  # a child: not in topo's self time
-        gather = _span("gather", gather_stage, 5.0, 25.0, {"gather_bytes": 10_000_000})
+        host_gather = _span("gather", gather_stage, 5.0, 25.0, {"gather_bytes": 9})  # not read
         h2d_stage = _span("stage:H2D", root, 40.0, 50.0)
-        h2d = _span("h2d", h2d_stage, 40.0, 49.0, {"h2d_bytes": 8_000_000}, device_ms=1.0)
+        h2d = _span("h2d", h2d_stage, 40.0, 45.0, {"h2d_bytes": 8_000_000}, device_ms=1.0)
+        gather = _span("device_gather", h2d_stage, 45.0, 48.0,
+                       {"device_gather_bytes": 10_000_000, "block_bytes": 30_000_000},
+                       device_ms=0.025)
+        gather_cpu = _span("device_gather", h2d_stage, 48.0, 49.0,
+                           {"device_gather_bytes": 7})  # no events
         h2d_cpu = _span("h2d", h2d_stage, 49.0, 50.0, {"h2d_bytes": 5})  # no events
-        return [topo, sub, gather_stage, gather, h2d, h2d_cpu, h2d_stage]
+        return [topo, sub, gather_stage, host_gather, h2d, gather, gather_cpu, h2d_cpu, h2d_stage]
 
-    return _call("call:tet_order_calc", build, {"gather_bytes": 10_000_000})
+    return _call("call:tet_order_calc", build,
+                 {"device_gather_bytes": 10_000_007, "block_bytes": 30_000_000})
 
 
 def _voronoi_call(rows, cert):
@@ -55,7 +61,9 @@ def _read(name, run):
 # metric -> (value on two tet calls and a Voronoi call, value with no such span)
 EXPECTED = {
     "topology_ms": (2 * (2.0 + 1.0) / 3, None),  # (3 - 1) + 1 ms of self time over 3 calls
-    "gather_gbps": (20_000_000 / (40.0 * 1e6), None),  # 20 MB over 40 ms: 0.5 GB/s
+    # 20 MB over 0.05 ms of device time: 400 GB/s; the spans without events
+    # and the host `gather` are left out
+    "gather_gbps": (20_000_000 / (0.05 * 1e6), None),
     "h2d_gbps": (16_000_000 / (2.0 * 1e6), None),  # the span without events is left out
     "voronoi_escalation_yield": (100.0 * 30 / 120, None),
 }

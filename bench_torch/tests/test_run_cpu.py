@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +23,16 @@ def test_exits_nonzero_without_cuda():
                         "--seed", "1", "--seconds", "1", "--trace", "0"],
                        cwd=spec.ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert p.returncode != 0 and p.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("mods,found", [
+    ({"torch", "waterorderlib_tpu_torch.ops"}, []),
+    ({"jax.numpy", "numpy"}, ["jax"]),
+    ({"waterorderlib_tpu.ops.pallas", "waterorderlib_tpu_torch"}, ["waterorderlib_tpu"]),
+    ({"jaxlib", "flax.linen", "jaxtyping"}, ["flax", "jaxlib"]),
+])
+def test_foreign_modules_by_whole_top_level_name(mods, found):
+    assert run_mod.foreign_modules(mods) == found
 
 
 def _run(cell, seed=2**31 + 5):
@@ -54,26 +65,21 @@ def test_control_fails(tiny, name):
     assert any(v > cell["limits"][k] for k, v in got.items()), got
 
 
-# the kernel wrapper (or, for Voronoi, the dispatch) whose output a fault
-# alters, per check
-FAULT_AT = {
-    "q": ("waterorderlib_tpu_torch.ops.cuda.qtet2", "q_window"),
-    "lsi": ("waterorderlib_tpu_torch.ops.cuda.lsi", "lsi_window"),
-    "hbonds": ("waterorderlib_tpu_torch.ops.cuda.hbond", "hbond_dense"),
-    "voronoi": ("waterorderlib_tpu_torch.surface.voronoi_device", "voronoi_volumes_hybrid_frames"),
-}
-
-
 def _altered(out):
     """An answer altered where it is produced: the first value of the first
-    frame moved by a tenth of its size or more."""
+    frame that is an answer moved by a tenth of its size or more. -1 is no
+    answer: the angle kernel marks its empty slots so, and -1 * 1.1 + 0.1
+    would leave one unchanged."""
     first = out[0]
     if isinstance(first, torch.Tensor):
         first = first.clone()
-        first.view(-1)[0] = first.view(-1)[0] * 1.1 + (0.1 if first.is_floating_point() else 1)
+        flat = first.view(-1)
+        i = int(torch.nonzero(flat != -1)[0])
+        flat[i] = flat[i] * 1.1 + (0.1 if first.is_floating_point() else 1)
     else:
         first = first.copy()
-        first.flat[0] = first.flat[0] * 1.1 + 0.1
+        i = int(np.flatnonzero(first.reshape(-1) != -1)[0])
+        first.flat[i] = first.flat[i] * 1.1 + 0.1
     return (first, *out[1:])
 
 
@@ -96,7 +102,7 @@ def test_planted_fault_is_not_correct(tiny, monkeypatch, name, fault):
     import importlib
 
     cell = tiny(name, frames=4)
-    mod_name, attr = FAULT_AT[cell["check"]]
+    mod_name, attr = spec.check_module(cell["check"]).FAULT_AT
     mod = importlib.import_module(mod_name)
     orig = getattr(mod, attr)
 

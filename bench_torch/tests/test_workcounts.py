@@ -64,6 +64,26 @@ def test_lsi_count():
     assert nbytes == 2 * (216 * 21 + 12)
 
 
+def test_angles_count():
+    mod = spec.metric_reader("roofline.angles")
+    pos, boxes, box = _box()
+    flops, nbytes = mod.count(pos[:, 0::3], boxes, 0.0, 3.413)
+    want = pairs = 0
+    hi2 = np.float32(3.413 * 3.413)
+    for f in range(2):
+        dsq = _dsq(pos[f, 0::3].numpy(), box)
+        for i in range(216):
+            shell = sorted(dsq[i, j] for j in range(216) if 0.0 < dsq[i, j] <= hi2)
+            kept = shell[:16]
+            row_pairs = sum(1 for a in range(len(kept)) for b in range(a + 1, len(kept)))
+            want += len(shell) * DSQ_FLOPS + len(kept) * mod.NORM_EPILOGUE
+            want += row_pairs * mod.PAIR_EPILOGUE
+            pairs += row_pairs
+    assert pairs > 216  # a few angles a water
+    assert flops == want
+    assert nbytes == 2 * (216 * 16 + 12) + 4 * pairs
+
+
 def test_hbond_count():
     mod = spec.metric_reader("roofline.hbond")
     pos, boxes, box = _box()

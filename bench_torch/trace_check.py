@@ -20,7 +20,9 @@ program to run, default this one), then:
    inside the program's `stage_times()`, frames/s of each;
 3. split: over the traced windows' recorded calls, the cell's
    `host_prep_ms` stages against the `topology` spans' self time, the
-   `gather` and `h2d` spans and the self time of the masks stage.
+   `device_gather` spans (the order-parameter drivers' gather of center
+   rows on the card), the `h2d` spans and the self time of the masks
+   stage.
 
 Parts 1 and 3 report nothing on a program without the tracer. The last line
 of standard output is one JSON object."""
@@ -124,13 +126,13 @@ def split(run, calls):
     for st, c in zip(run.stage_calls, calls):
         host = sum(st.get(n, 0.0) for n in prep)
         topo = sum(c.self_ms(s) for s in c.named("topology"))
-        gather = sum(s.ms for s in c.named("gather"))
+        gather = sum(s.ms for s in c.named("device_gather"))
         h2d = sum(s.ms for s in c.named("h2d") if _stage_of(c, s) in prep)
         masks = sum(c.self_ms(s) for s in c.named("stage:masks (host + H2D)"))
         rows.append((host, topo, gather, h2d, masks))
     n = len(rows)
     mean = [sum(r[i] for r in rows) / n for i in range(5)]
-    return {"calls": n, "host_prep_ms": mean[0], "topology_ms": mean[1], "gather_ms": mean[2],
+    return {"calls": n, "host_prep_ms": mean[0], "topology_ms": mean[1], "device_gather_ms": mean[2],
             "h2d_ms": mean[3], "masks_self_ms": mean[4],
             "share": sum(mean[1:]) / mean[0] if mean[0] else None}
 
