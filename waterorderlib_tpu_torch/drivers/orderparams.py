@@ -185,8 +185,14 @@ def _frames_in(positions, boxes, inds, sub_inds, n_pops, row_map, device):
 
 
 def _run_core(core, pos, boxes, masks):
-    """`core(pos, boxes, masks)`'s (carry, stats) as numpy."""
-    out = _as_numpy(core(pos, boxes, masks))
+    """`core(pos, boxes, masks)`'s (carry, stats) as numpy. A core may also
+    return {counter: count}, counts as ints or 0-d device tensors: they are
+    read after (carry, stats) have crossed, when the device has nothing left
+    to do, and added to the registry (`clock.count`)."""
+    carry, stats, *counts = core(pos, boxes, masks)
+    out = _as_numpy((carry, stats))
+    for name, n in (counts[0].items() if counts else ()):
+        clock.count(name, int(n))
     stage_end("D2H")
     return out
 
@@ -501,12 +507,16 @@ def lsi_calc(
 
 def _psi_core(end_pos, boxes, masks, low_cut, high_cut, n_bins, lo, hi):
     """psi-6 + population statistics for one frame batch: returns
-    (hist (P+1, n_bins), (means (F, P+1), vars (F, P+1)))."""
-    psi, _ = psi6_kernel.psi6_certified(end_pos, boxes, low_cut, high_cut)
+    (hist (P+1, n_bins), (means (F, P+1), vars (F, P+1)), counts): the
+    counters `psi6:rows`, the (frame, center) rows served, and
+    `psi6:rows_over_k`, those whose full shell holds more than the K kept
+    (the rows the top-K selection decides), summed on the device."""
+    psi, cnt = psi6_kernel.psi6_certified(end_pos, boxes, low_cut, high_cut)
     stage_end("kernel stage")
-    out = _masked_value_pop_stats(psi, masks, n_bins, lo, hi)
+    hist, stats = _masked_value_pop_stats(psi, masks, n_bins, lo, hi)
+    counts = {"psi6:rows": cnt.numel(), "psi6:rows_over_k": (cnt > psi6_kernel.K).sum()}
     stage_end("stats (device)")
-    return out
+    return hist, stats, counts
 
 
 @clock.traced("call:hex_order_calc")
