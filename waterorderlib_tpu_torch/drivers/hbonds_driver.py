@@ -272,7 +272,7 @@ def _stats_tail(output_dir, dist, series, seed):
     """clusterDistribution.txt and [mean, CI] of each per-frame series."""
     _save_dist(output_dir, "clusterDistribution.txt", dist, "cluster size    frequency")
     stage_end("savetxt")
-    out = [blocks.mean_and_ci(s, seed=seed) for s in series]
+    out = blocks.mean_and_ci_columns(series, seed=seed)
     stage_end("bootstrap (host)")
     return out
 

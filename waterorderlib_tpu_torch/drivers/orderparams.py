@@ -98,13 +98,13 @@ def _save_hist(path: str, hist: np.ndarray, n_bins: int, lo: float, hi: float, h
     np.savetxt(path, np.stack([centers, hist], axis=1), header=header, fmt="%.3e")
 
 
-def _mean_ci_rows(per_frame: np.ndarray, seed):
-    """per_frame: (F, P+1) -> ([mean_j], [CI_j]) as the reference returns."""
-    means = np.nanmean(per_frame, axis=0)
-    cis = np.array(
-        [blocks.block_average(per_frame[:, j], seed=seed) for j in range(per_frame.shape[1])]
-    )
-    return [means, cis]
+def _mean_ci_rows(*per_frame: np.ndarray, seed):
+    """Each per_frame: (F, P+1) -> [[mean_j], [CI_j]] as the reference
+    returns, in a tuple; one bootstrap draw for every column of them."""
+    cis = iter(blocks.block_average_columns(
+        [a[:, j] for a in per_frame for j in range(a.shape[1])], seed=seed))
+    return tuple([np.nanmean(a, axis=0), np.array([next(cis) for _ in range(a.shape[1])])]
+                 for a in per_frame)
 
 
 def _masks_tensor(sub_inds, n_frames, n_pops, row_map, nw, device) -> torch.Tensor:
@@ -288,7 +288,7 @@ def tet_order_calc(
             hist[j], n_bins, lo, hi, "qVal    frequency",
         )
     stage_end("savetxt")
-    out = _mean_ci_rows(avg_q, seed), _mean_ci_rows(var_q, seed)
+    out = _mean_ci_rows(avg_q, var_q, seed=seed)
     stage_end("bootstrap (host)")
     return out
 
@@ -421,7 +421,7 @@ def _three_body_outputs(
         except Exception as e:  # plotting is best-effort, but never silent
             _logging_mod.get_logger().warning("three_body_calc: 2-D PNG skipped (%r)", e)
     stage_end("savetxt")
-    out = tuple(_mean_ci_rows(np.asarray(a), seed) for a in (frac, avg, var, ent, n_wats))
+    out = _mean_ci_rows(*map(np.asarray, (frac, avg, var, ent, n_wats)), seed=seed)
     stage_end("bootstrap (host)")
     return out
 
@@ -496,7 +496,7 @@ def lsi_calc(
             hist[j], n_bins, lo, hi, "lsiVal [A^2]    frequency",
         )
     stage_end("savetxt")
-    out = _mean_ci_rows(avg_lsi, seed), _mean_ci_rows(var_lsi, seed)
+    out = _mean_ci_rows(avg_lsi, var_lsi, seed=seed)
     stage_end("bootstrap (host)")
     return out
 
@@ -574,7 +574,7 @@ def hex_order_calc(
             hist[j], n_bins, lo, hi, "psiVal    frequency",
         )
     stage_end("savetxt")
-    out = _mean_ci_rows(avg_psi, seed), _mean_ci_rows(var_psi, seed)
+    out = _mean_ci_rows(avg_psi, var_psi, seed=seed)
     stage_end("bootstrap (host)")
     return out
 

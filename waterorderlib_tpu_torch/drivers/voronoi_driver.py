@@ -172,8 +172,8 @@ def voronoi_calc(
             _save_hist(os.path.join(output_dir, fname), hist, 500, rng[0], rng[1], header)
     stage_end("savetxt")
 
-    res = tuple(_mean_ci_rows(stats[key], seed)
-                for key in ("avgV", "varV", "avgA", "varA", "avgE", "varE"))
+    res = _mean_ci_rows(*(stats[key] for key in ("avgV", "varV", "avgA", "varA", "avgE", "varE")),
+                        seed=seed)
     stage_end("bootstrap CIs")
     return res
 
@@ -299,12 +299,12 @@ def contact_area_calc(
     tot = out["tot"]
     safe_tot = np.where(tot > 0, tot, 1.0)
     fracs = {k: out[k] / safe_tot for k in ("phobic", "philic", "bound", "wrap")}
-    ba = lambda v: blocks.block_average(v, seed=seed)
-    tot_area_res = [float(np.mean(tot))] + [float(np.mean(out[k]))
-                                            for k in ("phobic", "philic", "bound", "wrap")]
-    tot_ci = [ba(tot)] + [ba(out[k]) for k in ("phobic", "philic", "bound", "wrap")]
-    frac_res = [float(np.mean(fracs[k])) for k in ("phobic", "philic", "bound", "wrap")]
-    frac_ci = [ba(fracs[k]) for k in ("phobic", "philic", "bound", "wrap")]
+    keys = ("phobic", "philic", "bound", "wrap")
+    tot_area_res = [float(np.mean(tot))] + [float(np.mean(out[k])) for k in keys]
+    cis = blocks.block_average_columns([tot] + [out[k] for k in keys] + [fracs[k] for k in keys],
+                                       seed=seed)
+    tot_ci, frac_ci = cis[:5], cis[5:]
+    frac_res = [float(np.mean(fracs[k])) for k in keys]
     stage_end("bootstrap CIs")
     return tot_area_res, tot_ci, frac_res, frac_ci
 
@@ -344,6 +344,6 @@ def hydrated_volume_calc(
         vols[t] = atom_vol[0, sol_rows].sum()
         areas[t] = wat_rows.sum()
         stage_end("statistics")
-    res = blocks.mean_and_ci(vols, seed=seed), blocks.mean_and_ci(areas, seed=seed)
+    res = tuple(blocks.mean_and_ci_columns([vols, areas], seed=seed))
     stage_end("bootstrap CIs")
     return res
