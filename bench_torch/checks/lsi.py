@@ -16,6 +16,11 @@ from bench_torch.reference.lsi import lsi_frames
 N_BINS, LO, HI = 500, 0.0, 0.3
 NAMES = ("lsi_gap", "hist_excess", "mean_gap")
 FAULT_AT = ("waterorderlib_tpu_torch.ops.cuda.lsi", "lsi_window")
+# the split tier, which lsi_certified takes at the cell's 16,384 waters, has
+# a launch of its own that FAULT_AT's K = 24 kernel does not reach; the
+# tests take it at the CPU's tiny size by holding `split_tier` true
+TIER_FAULTS = {"slab-split": {"at": ("waterorderlib_tpu_torch.ops.cuda.lsi", "lsi_split_window"),
+                              "force": ("waterorderlib_tpu_torch.ops.cuda.lsi", "split_tier")}}
 
 
 def capture(out):

@@ -7,8 +7,19 @@ metric sits in a file of its own under `bench_torch/`:
 - `configs/<config>.json`: the deployment (box, water model, precision);
 - `traffic/<traffic>.json`: the driver entry, its keyword arguments, frames
   per call, the pool the calls draw their frames from, the population (the
-  waters within `radius_A` of the box centre), the calls to check; a key
-  the harness does not read is refused;
+  waters within `radius_A` of the box centre), the calls to check, and the
+  `source` of each call's trajectory: "memory" (the default) hands the
+  driver the call's frames of the pool as an in-memory `Trajectory`,
+  "dcd" the path of one of the DCD files that set-up wrote the pool to, one
+  file a call's worth of frames (`pool_frames` a multiple of
+  `frames_per_call`); and optionally `structures` = {"count", "seed"}: the
+  whole pool made from a fixed seed, the same for every run, each of its
+  `count` lattices in every call equally often (`count` divides
+  `frames_per_call`), and the calls taking the pool's whole calls in rounds
+  (`pool_frames` a multiple of `frames_per_call`), so that the run's seed
+  changes the order and not the work (core/waterbox.py, run.py
+  `draw_offset`); a key the harness does not read, or another source, is
+  refused;
 - `workloads/<cell>.json`: the configuration and traffic, the stage-clock
   names of each layer metric, the dispatch entry point that the traced run
   wraps, the wrappers' launch and plain-call counters, the output check and
@@ -51,17 +62,44 @@ def config(name: str) -> dict:
 
 
 TRAFFIC_KEYS = {"driver", "kwargs", "frames_per_call", "pool_frames", "population",
-                "min_calls", "check_calls", "why"}
+                "min_calls", "check_calls", "source", "structures", "why"}
 POPULATION_KEYS = {"radius_A"}
+STRUCTURE_KEYS = {"count", "seed"}
+SOURCES = ("memory", "dcd")
+
+
+def source(tr: dict) -> str:
+    """Where the traffic's calls read their frames: "memory" or "dcd"."""
+    return tr.get("source", "memory")
 
 
 def check_traffic(name: str, tr: dict) -> dict:
     """`tr` as read, or ValueError where it holds a key the harness does not
-    read: a setting that nothing reads would be silently ignored."""
+    read (a setting that nothing reads would be silently ignored), a source
+    it does not know, a file source whose pool does not split into whole
+    calls, or lattices that a call would not hold equally often or a pool
+    of them that does not split into whole calls."""
     unread = set(tr) - TRAFFIC_KEYS
     unread |= {f"population.{k}" for k in set(tr.get("population") or {}) - POPULATION_KEYS}
+    st = tr.get("structures")
+    if st is not None:
+        unread |= {f"structures.{k}" for k in set(st) ^ STRUCTURE_KEYS}
     if unread:
-        raise ValueError(f"traffic {name}: keys the harness does not read: {sorted(unread)}")
+        raise ValueError(f"traffic {name}: keys the harness does not read or lacks: "
+                         f"{sorted(unread)}")
+    if st is not None and (int(st["count"]) < 1 or int(tr["frames_per_call"]) % int(st["count"])):
+        raise ValueError(f"traffic {name}: structures.count {st['count']} does not divide "
+                         f"frames_per_call {tr['frames_per_call']}, so a call would not hold "
+                         f"each lattice equally often")
+    if st is not None and int(tr["pool_frames"]) % int(tr["frames_per_call"]):
+        raise ValueError(f"traffic {name}: pool_frames {tr['pool_frames']} is not a multiple "
+                         f"of frames_per_call {tr['frames_per_call']}, so the pool would not "
+                         f"split into whole calls")
+    if source(tr) not in SOURCES:
+        raise ValueError(f"traffic {name}: source {source(tr)!r} is none of {SOURCES}")
+    if source(tr) == "dcd" and int(tr["pool_frames"]) % int(tr["frames_per_call"]):
+        raise ValueError(f"traffic {name}: pool_frames {tr['pool_frames']} is not a multiple "
+                         f"of frames_per_call {tr['frames_per_call']}, one file a call")
     return tr
 
 

@@ -7,7 +7,9 @@ instant range `bench.stage:<name>`. From the Chrome trace that
 (kernel, copy, memset) to the host range that launched it, through the
 runtime call that shares its correlation id, and takes:
 
-- the device time and the kernel count inside the dispatch ranges;
+- the device time and the kernel count inside the dispatch ranges, summed
+  over every range (a call of a chunked driver holds one a chunk), and the
+  number of ranges;
 - the union of device intervals over the calls' span (busy time) and that
   span's length, from which the idle share follows;
 - the device operations that took most time, by name;
@@ -28,6 +30,7 @@ RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
 class Profile(NamedTuple):
     dispatch_s: float           # device time of the operations launched in dispatch ranges
     dispatch_kernels: int       # kernels launched in dispatch ranges
+    dispatch_ranges: int        # the dispatch ranges of the profiled calls
     busy_s: float               # union of device intervals within the calls' span
     window_s: float             # the span from the first call's start to the last one's end
     device_ops: list            # [[name, seconds], ...], most time first, at most 10
@@ -115,5 +118,5 @@ def read(path: str) -> Profile:
     def top(d):
         return [[k, v * 1e-6] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
 
-    return Profile(dispatch_us * 1e-6, kernels, busy_us * 1e-6, (t1 - t0) * 1e-6,
-                   top(by_name), top(idle))
+    return Profile(dispatch_us * 1e-6, kernels, len(dispatch), busy_us * 1e-6,
+                   (t1 - t0) * 1e-6, top(by_name), top(idle))

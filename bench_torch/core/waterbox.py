@@ -9,6 +9,18 @@ the geometry of the port's `io/synthetic.make_water_box`, vectorised over
 frames and written again here so the yardstick does not move with the
 program. The same seed gives the same frames on the same device.
 
+The sites (which lattice sites hold a water, and how far each is moved)
+and each frame's jitter decide how much work an analysis with
+data-dependent tiers does: one seed's frames may send a few waters to a
+Voronoi tier that another seed's never reach. A traffic that sets
+`structures` = {"count": M, "seed": s} takes the whole pool from s, the
+same for every run: M lattices, frame i of the pool from lattice
+order[i % M], and the frames' jitter and rotations. Every window of a
+multiple of M frames holds each lattice equally often, and the run's seed
+draws only the order in which the calls visit the pool's whole calls
+(run.py `draw_offset`), so that every seed does the same work in another
+order.
+
 `shell_population` is the traffic's population rule: on each frame, the
 waters whose oxygen lies within a radius of the box centre.
 """
@@ -46,23 +58,46 @@ def local_water(config: dict) -> torch.Tensor:
                          [-oh * math.sin(half), 0.0, oh * math.cos(half)]], dtype=torch.float64)
 
 
-def make_frames(config: dict, n_frames: int, seed: int, device) -> tuple[torch.Tensor, float]:
-    """(n_frames, 3 * n_waters, 3) float32 positions on `device`, atoms in
-    the order O, H1, H2 of each water, and the box edge."""
-    n = config["n_waters"]
-    box = edge(config)
+def _generator(seed: int, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (1 << 63))
-    f64 = dict(dtype=torch.float64, device=device)
+    return gen
 
+
+def _sites(config: dict, box: float, gen: torch.Generator, device) -> torch.Tensor:
+    """(n_waters, 3) float64: n_waters sites of the cubic lattice taken at
+    random, each moved by up to `lattice_jitter` of the spacing."""
+    n = config["n_waters"]
+    f64 = dict(dtype=torch.float64, device=device)
     n_side = math.ceil(round(n ** (1.0 / 3.0), 9))
     spacing = box / n_side
     axis = (torch.arange(n_side, **f64) + 0.5) * spacing
     sites = torch.stack(torch.meshgrid(axis, axis, axis, indexing="ij"), -1).reshape(-1, 3)
     sites = sites[torch.randperm(sites.shape[0], generator=gen, device=device)[:n]]
     jit = config["lattice_jitter"] * spacing
-    sites = torch.remainder(sites + (torch.rand(sites.shape, generator=gen, **f64) * 2 - 1) * jit,
-                            box)
+    return torch.remainder(sites + (torch.rand(sites.shape, generator=gen, **f64) * 2 - 1) * jit,
+                           box)
+
+
+def make_frames(config: dict, n_frames: int, seed: int, device,
+                structures: dict | None = None) -> tuple[torch.Tensor, float]:
+    """(n_frames, 3 * n_waters, 3) float32 positions on `device`, atoms in
+    the order O, H1, H2 of each water, and the box edge. Without
+    `structures` the frames come from `seed`; with it, from its own seed
+    alone (module docstring)."""
+    n = config["n_waters"]
+    box = edge(config)
+    f64 = dict(dtype=torch.float64, device=device)
+
+    if structures is None:
+        gen = _generator(seed, device)
+        sites = _sites(config, box, gen, device)
+    else:
+        count = int(structures["count"])
+        gen = _generator(structures["seed"], device)
+        sites = torch.stack([_sites(config, box, gen, device) for _ in range(count)])
+        order = torch.randperm(count, generator=gen, device=device)
+        sites = sites[order[torch.arange(n_frames, device=device) % count]]
 
     oxy = sites + torch.randn((n_frames, n, 3), generator=gen, **f64) * config["frame_jitter_A"]
     q = torch.randn((n_frames, n, 4), generator=gen, **f64)

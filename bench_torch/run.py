@@ -7,9 +7,24 @@ Run from the root of a checkout that holds `BENCHMARK.json` and the port,
 `waterorderlib_tpu_torch/`. The cell's files (spec.py says which) give the
 water box, the driver and how it is called. Set-up makes a pool of frames
 on the card from the seed, copies it to the host as the float32 trajectory
-a user's loader would give, and warms the driver with one call. The window
+a user's loader would give, and warms the driver with one call. Where the
+traffic sets `structures`, the pool is the same for every seed
+(core/waterbox.py) and the seed draws the order in which the calls visit
+its whole calls, each once a round, so that every seed asks the same work
+of tiers that depend on the data. The window
 then calls the driver back to back (a closed loop), each call on its own
 frames of the pool, for `--seconds`.
+
+Where the traffic's `source` is "dcd", set-up also writes the pool to DCD
+files in the run's scratch directory (core/dcd.py), one a call's worth of
+frames, every atom, as an MD engine writes them; each call is handed the
+path of the file its frames are in, drawn from the seed, and the driver
+reads it. The output check still takes the call's frames from the pool in
+memory, so it holds what the program read from the file against the frames
+that were written. Nothing drops the page cache: set-up reads each file
+once through an mmap, and its note gives that read's rate and the type of
+the filesystem, so the calls read files the OS holds, as a job that runs
+several analyses over one trajectory does.
 
 With `--trace 0` the last line of standard output holds the end-to-end
 metrics. With `--trace 1` the run first profiles a few calls with
@@ -97,6 +112,8 @@ class Run:
         self.device = torch.device(device)
         self.config, self.traffic = cell["config_spec"], cell["traffic_spec"]
         self.frames_per_call = int(self.traffic["frames_per_call"])
+        self.source = spec.source(self.traffic)
+        self.files: list[str] = []
         self.bench = bench if bench is not None else spec.benchmark()
         self.window: list[Call] = []
         self.records: list[CallRecord] = []
@@ -115,7 +132,8 @@ class Run:
         sample of calls to check, drawn from the seed."""
         tr = self.traffic
         pool_frames = int(tr["pool_frames"])
-        pos, box = waterbox.make_frames(self.config, pool_frames, self.seed, self.device)
+        pos, box = waterbox.make_frames(self.config, pool_frames, self.seed, self.device,
+                                        tr.get("structures"))
         pop = tr.get("population")
         self.sub_inds = (waterbox.shell_population(pos, box, pop["radius_A"]) if pop else None)
         self.pool = pos.cpu().numpy()
@@ -123,9 +141,49 @@ class Run:
         self.boxes = np.full((pool_frames, 3), box, dtype=np.float32)
         self.out_root = tempfile.mkdtemp(prefix="bench_torch_out_")
         self.offset_rng = np.random.default_rng([self.seed, 1])
+        self.round: list[int] = []
         picks = np.random.default_rng([self.seed, 2]).choice(
             int(tr["min_calls"]), size=int(tr["check_calls"]), replace=False)
         self.sample = set(int(i) for i in picks)
+
+    def write_files(self) -> str:
+        """With a "dcd" source, the pool as DCD files in the run's scratch
+        directory: file i holds frames [i F, (i + 1) F) of F a call. Each
+        file is then read through a fresh mmap, timed, so that the calls
+        find it in memory and the set-up note shows they do. Returns the
+        note's part, or ""."""
+        if self.source != "dcd":
+            return ""
+        from bench_torch.core import dcd
+
+        f = self.frames_per_call
+        t0 = time.perf_counter()
+        for i in range(self.boxes.shape[0] // f):
+            path = os.path.join(self.out_root, f"pool{i}.dcd")
+            dcd.write(path, self.pool[i * f:(i + 1) * f], self.boxes[i * f:(i + 1) * f])
+            self.files.append(path)
+        t1 = time.perf_counter()
+        mapped = sum(dcd.touch(path) for path in self.files)
+        t2 = time.perf_counter()
+        return (f", {len(self.files)} files written {t1 - t0:.3f} s to {self.out_root} "
+                f"({dcd.fs_type(self.out_root)}), read {mapped / 1e9:.3f} GB through mmap "
+                f"{t2 - t1:.3f} s ({mapped / 1e9 / (t2 - t1):.2f} GB/s)")
+
+    def draw_offset(self) -> int:
+        """A call's first frame of the pool, from the offset stream: any
+        frame that leaves room for a call; with a "dcd" source the first
+        frame of a file; with `structures` the first frame of one of the
+        pool's whole calls, visited in rounds, each round every whole call
+        once in an order drawn anew, so that every seed's window holds the
+        same calls as often, to within its last round."""
+        f, pool = self.frames_per_call, self.boxes.shape[0]
+        if self.source == "dcd":
+            return f * int(self.offset_rng.integers(0, pool // f))
+        if self.traffic.get("structures") is not None:
+            if not self.round:
+                self.round = [f * int(i) for i in self.offset_rng.permutation(pool // f)]
+            return self.round.pop()
+        return int(self.offset_rng.integers(0, pool - f + 1))
 
     def setup(self) -> None:
         from waterorderlib_tpu_torch.io.topology import Topology
@@ -133,6 +191,8 @@ class Run:
 
         t0 = time.perf_counter()
         self.make_pool()
+        tf = time.perf_counter()
+        files = self.write_files()
         t1 = time.perf_counter()
         self.Trajectory = Trajectory
         self.top = Topology(**waterbox.topology_arrays(self.config["n_waters"]))
@@ -143,8 +203,8 @@ class Run:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         self.call(CallRecord(self, -1, 0))  # warm-up: builds and loads every kernel it uses
-        self.note(f"set-up: imports and start {t0 - T_PROCESS:.3f} s, pool {t1 - t0:.3f} s, "
-                  f"warm-up call {time.perf_counter() - t1:.3f} s")
+        self.note(f"set-up: imports and start {t0 - T_PROCESS:.3f} s, pool {tf - t0:.3f} s"
+                  f"{files}, warm-up call {time.perf_counter() - t1:.3f} s")
 
     def _patch(self, mod, name, value):
         self._patched.append((mod, name, getattr(mod, name)))
@@ -191,8 +251,7 @@ class Run:
 
     # -- calls ----------------------------------------------------------
     def next_record(self) -> CallRecord:
-        hi = self.boxes.shape[0] - self.frames_per_call
-        rec = CallRecord(self, len(self.records), int(self.offset_rng.integers(0, hi + 1)))
+        rec = CallRecord(self, len(self.records), self.draw_offset())
         self.records.append(rec)
         return rec
 
@@ -202,10 +261,11 @@ class Run:
         kwargs = dict(rec.kwargs, output_dir=rec.out_dir, device=str(self.device))
         if self.sub_inds is not None:
             kwargs.update(sub_inds=self.sub_inds[sl], n_pops=1)
+        traj = (self.files[rec.offset // rec.frames] if self.source == "dcd"
+                else self.Trajectory(self.pool[sl], self.boxes[sl]))
         self.capturing = rec
         try:
-            rec.result = self.driver(self.top, self.Trajectory(self.pool[sl], self.boxes[sl]),
-                                     **kwargs)
+            rec.result = self.driver(self.top, traj, **kwargs)
         finally:
             self.capturing = None
         # keep what the sampled calls and the latest call produced, nothing else
@@ -251,8 +311,7 @@ class Run:
         from bench_torch.core import trace as trace_mod
 
         n = int(self.cell["profile_calls"])
-        recs = [CallRecord(self, -2 - i, int(self.offset_rng.integers(
-            0, self.boxes.shape[0] - self.frames_per_call + 1))) for i in range(n)]
+        recs = [CallRecord(self, -2 - i, self.draw_offset()) for i in range(n)]
         self._mark_stages()
         launches0 = self.counters("launch_counters", "launches")
         path = os.path.join(self.out_root, "trace.json")
@@ -272,7 +331,8 @@ class Run:
         os.remove(path)
         self.profiled = recs
         self.note(f"profile: {n} calls, window {self.profile.window_s:.6f} s, busy "
-                  f"{self.profile.busy_s:.6f} s, dispatch {self.profile.dispatch_s:.6f} s, "
+                  f"{self.profile.busy_s:.6f} s, dispatch {self.profile.dispatch_s:.6f} s in "
+                  f"{self.profile.dispatch_ranges} dispatch ranges, "
                   f"{self.profile.dispatch_kernels} kernels in dispatch against {launches} "
                   f"launches counted")
         if self.profile.dispatch_kernels < launches or (launches and self.profile.dispatch_s <= 0):
@@ -349,6 +409,7 @@ class Run:
         if self.device.type == "cuda":
             torch.cuda.synchronize()
             device["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated(self.device))
+            self.memory_peak_bytes = device["memory_peak_bytes"]
         if self.trace and self.profile is not None:
             device["busy_s"] = self.profile.busy_s
             device["window_s"] = self.profile.window_s

@@ -5,6 +5,7 @@ import ast
 import json
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 
@@ -31,11 +32,13 @@ def test_cell_files_load(w):
     mod_name, name = check.FAULT_AT
     assert spec.attr(f"{mod_name}:{name}")[2] is not None
     e2e, layer = spec.metrics_of(BENCH, w["name"])
-    assert {m["name"] for m in e2e} >= {"setup_s", "frames_per_s"}
-    assert layer
+    reported = {m["name"] for m in e2e}
+    assert "setup_s" in reported and len(reported) >= 2
+    assert layer and all(m["moves"] in reported for m in layer)
     for m in layer:
         if m["source"] == "program_span":
-            assert m["name"] in cell["layers"], m["name"]
+            # a metric split by the cells it is in (`<metric>.<kind>`) reads the metric's stages
+            assert m["name"] in cell["layers"] or m["name"].split(".")[0] in cell["layers"], m["name"]
 
 
 @pytest.mark.parametrize("path", sorted((spec.BENCH / "checks").glob("[!_]*.py")),
@@ -67,6 +70,27 @@ def test_metric_files_load(m):
     reader = spec.metric_reader(m["name"])
     assert callable(reader.read)
     assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+
+
+SPLIT_READS = ("host_prep_ms", "dispatch_ms", "stats_ms", "device_idle_share", "frames_per_s")
+
+
+@pytest.mark.parametrize("base", SPLIT_READS)
+def test_split_metric_reads_as_the_metric(base):
+    from bench_torch.core.window import Call
+
+    run = SimpleNamespace(cell={"layers": {base: ["host gather", "H2D"]}},
+                          stage_calls=[{"host gather": 5.0, "H2D": 1.0}, {"host gather": 7.0}],
+                          profile=SimpleNamespace(window_s=2.0, idle_share=0.25),
+                          window=[Call(0.0, 0.5, 32), Call(0.5, 2.0, 32)])
+    got = spec.metric_reader(f"{base}.host_bound").read(run)
+    assert got is not None and got == spec.metric_reader(base).read(run)
+
+
+def test_memory_peak_in_mib():
+    reader = spec.metric_reader("memory_peak_mib")
+    assert reader.read(SimpleNamespace(memory_peak_bytes=3 * 2**20)) == 3.0
+    assert reader.read(SimpleNamespace()) is None  # nothing read on the CPU
 
 
 @pytest.mark.parametrize("c", BENCH["configs"], ids=lambda c: c["name"])

@@ -6,13 +6,11 @@ import os
 import subprocess
 import sys
 
-import numpy as np
 import pytest
-import torch
 
 from bench_torch import run as run_mod
 from bench_torch.control import control_readings
-from bench_torch.core import spec
+from bench_torch.core import faults, spec
 
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
 
@@ -45,6 +43,10 @@ def _run(cell, seed=2**31 + 5):
 SIZE_BOUND = {"spc4096.voronoi": ("hist_excess",)}
 
 
+# end-to-end metrics that only a card can read
+CARD_ONLY = {"memory_peak_mib"}
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_sound_run_is_correct(tiny, name):
     res = _run(tiny(name))
@@ -54,7 +56,9 @@ def test_sound_run_is_correct(tiny, name):
     assert not bad and res["checks"]["checked_calls"]["value"] >= 1, res["checks"]
     assert res["correct"] or skip
     assert list(res)[-1] == "checks"
-    assert set(res["metrics"]) >= {"frames_per_s", "setup_s"}
+    e2e, _ = spec.metrics_of(spec.benchmark(), name)
+    assert set(res["metrics"]) == {m["name"] for m in e2e} - CARD_ONLY
+    assert "setup_s" in res["metrics"]
     assert res["attempted"] >= 1 and res["failed"] == 0
 
 
@@ -65,53 +69,43 @@ def test_control_fails(tiny, name):
     assert any(v > cell["limits"][k] for k, v in got.items()), got
 
 
-def _altered(out):
-    """An answer altered where it is produced: the first value of the first
-    frame that is an answer moved by a tenth of its size or more. -1 is no
-    answer: the angle kernel marks its empty slots so, and -1 * 1.1 + 0.1
-    would leave one unchanged."""
-    first = out[0]
-    if isinstance(first, torch.Tensor):
-        first = first.clone()
-        flat = first.view(-1)
-        i = int(torch.nonzero(flat != -1)[0])
-        flat[i] = flat[i] * 1.1 + (0.1 if first.is_floating_point() else 1)
-    else:
-        first = first.copy()
-        i = int(np.flatnonzero(first.reshape(-1) != -1)[0])
-        first.flat[i] = first.flat[i] * 1.1 + 0.1
-    return (first, *out[1:])
-
-
-def _half(out):
-    """Half of the batch left out: the second half of the frames a copy of
-    the first, so the statistics are taken over the rest."""
-    def fold(t):
-        t = t.clone() if isinstance(t, torch.Tensor) else t.copy()
-        if t.ndim == 0 or t.shape[0] < 2:
-            return t
-        h = t.shape[0] // 2
-        t[h:2 * h] = t[:h]
-        return t
-    return tuple(fold(t) for t in out[:2]) + tuple(out[2:])
-
-
-@pytest.mark.parametrize("fault", [_altered, _half], ids=["answer_altered", "half_the_batch"])
+@pytest.mark.parametrize("fault", ["answer_altered", "half_the_batch"])
 @pytest.mark.parametrize("name", CELLS)
 def test_planted_fault_is_not_correct(tiny, monkeypatch, name, fault):
-    import importlib
-
     cell = tiny(name, frames=4)
-    mod_name, attr = spec.check_module(cell["check"]).FAULT_AT
-    mod = importlib.import_module(mod_name)
-    orig = getattr(mod, attr)
+    faults.plant(fault, spec.check_module(cell["check"]).FAULT_AT, monkeypatch.setattr)
+    res = _run(cell)
+    assert not res["correct"], res["checks"]
 
-    def broken(*args, **kwargs):
-        return fault(orig(*args, **kwargs))
 
-    for k in ("launches", "calls"):
-        if hasattr(orig, k):
-            setattr(broken, k, getattr(orig, k))
-    monkeypatch.setattr(mod, attr, broken)
+# the tiny size at which the split LSI tier's windows cover every row, so
+# that lsi_certified takes it when `split_tier` is held true
+TIER_WATERS = 512
+TIERS = [(name, tier) for name in CELLS
+         for tier in faults.points(spec.check_module(spec.cell(name)["check"])) if tier]
+
+
+def _tier_cell(tiny, monkeypatch, name, tier):
+    cell = tiny(name, n_waters=TIER_WATERS, frames=4)
+    point = faults.points(spec.check_module(cell["check"]))[tier]
+    faults.force_tier(point, monkeypatch.setattr)
+    return cell, point
+
+
+@pytest.mark.parametrize("name,tier", TIERS, ids=lambda v: v)
+def test_forced_tier_is_served_and_correct(tiny, monkeypatch, name, tier):
+    cell, _ = _tier_cell(tiny, monkeypatch, name, tier)
+    res = _run(cell)
+    assert res["correct"], res["checks"]
+    assert spec.attr(cell["report"][0])[2] == tier
+
+
+@pytest.mark.parametrize("fault", ["answer_altered", "half_the_batch"])
+@pytest.mark.parametrize("name,tier", TIERS, ids=lambda v: v)
+def test_planted_fault_at_each_tier_is_not_correct(tiny, monkeypatch, name, tier, fault):
+    """A fault at the launch of a tier that the cell takes on the card and
+    the tiny CPU cell does not (`TIER_FAULTS`), with the tier forced."""
+    cell, point = _tier_cell(tiny, monkeypatch, name, tier)
+    faults.plant(fault, point["at"], monkeypatch.setattr)
     res = _run(cell)
     assert not res["correct"], res["checks"]

@@ -48,3 +48,21 @@ def test_no_call_range_raises(tmp_path):
     path.write_text(json.dumps({"traceEvents": []}))
     with pytest.raises(RuntimeError):
         trace.read(str(path))
+
+
+def test_every_dispatch_range_is_summed(tmp_path):
+    """A chunked driver's call holds one dispatch range a chunk: the work
+    and kernels of each count, not the first range's alone."""
+    ev = [_x("user_annotation", "bench.call", 0, 1000)]
+    for i in range(4):
+        t = 100 + 200 * i
+        ev += [_x("user_annotation", "bench.dispatch", t, 50),
+               _x("cuda_runtime", "cudaLaunchKernel", t + 10, 5, corr=i),
+               _x("kernel", f"k{i}", t + 60, 20 + i, corr=i)]
+    ev.append(_x("cuda_runtime", "cudaLaunchKernel", 950, 5, corr=9))  # outside any range
+    ev.append(_x("kernel", "k_out", 960, 10, corr=9))
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    p = trace.read(str(path))
+    assert p.dispatch_ranges == 4 and p.dispatch_kernels == 4
+    assert p.dispatch_s == pytest.approx((20 + 21 + 22 + 23) * 1e-6)

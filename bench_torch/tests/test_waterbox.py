@@ -66,3 +66,68 @@ def test_topology_arrays():
     t = waterbox.topology_arrays(3)
     assert list(t["elements"]) == ["O", "H", "H"] * 3
     assert t["bonds"].tolist() == [[0, 1], [0, 2], [3, 4], [3, 5], [6, 7], [6, 8]]
+
+
+def _oxygen_sets(pos):
+    """Each frame's oxygens as a set of rounded tuples."""
+    return [frozenset(map(tuple, f[0::3].double().mul(1e4).round().tolist())) for f in pos]
+
+
+def test_fixed_structures_give_every_seed_the_same_lattices():
+    cfg = _small(n=216)
+    cfg["frame_jitter_A"] = 0.0  # the frames' oxygens are then their lattice's sites
+    st = {"count": 4, "seed": 3}
+    a, _ = waterbox.make_frames(cfg, 8, 2**33 + 1, "cpu", st)
+    b, _ = waterbox.make_frames(cfg, 8, 2**33 + 2, "cpu", st)
+    sa, sb = _oxygen_sets(a), _oxygen_sets(b)
+    assert len(set(sa)) == 4 and set(sa) == set(sb)
+    # every window of `count` frames holds each lattice once, at any offset
+    for sets in (sa, sb):
+        for o in range(len(sets) - 3):
+            assert len(set(sets[o:o + 4])) == 4
+    # the whole pool, order, jitter and rotations too, is the structures' own
+    assert torch.equal(a, b)
+    cfg = _small(n=216)
+    assert torch.equal(waterbox.make_frames(cfg, 8, 2**33 + 1, "cpu", st)[0],
+                       waterbox.make_frames(cfg, 8, 2**33 + 2, "cpu", st)[0])
+    c, _ = waterbox.make_frames(cfg, 8, 2**33 + 1, "cpu", {"count": 4, "seed": 4})
+    assert set(_oxygen_sets(c)) != set(sa)
+
+
+def _structured_run(seed, pool=16, per_call=4):
+    from bench_torch import run as run_mod
+
+    run = run_mod.Run.__new__(run_mod.Run)
+    run.traffic = {"structures": {"count": 4, "seed": 3}}
+    run.source, run.frames_per_call = "memory", per_call
+    run.boxes = np.zeros((pool, 3), np.float32)
+    run.offset_rng = np.random.default_rng([seed, 1])
+    run.round = []
+    return run
+
+
+def test_structured_calls_visit_the_pool_in_rounds():
+    orders = []
+    for seed in (2**33 + 1, 2**33 + 2, 2**33 + 1):
+        run = _structured_run(seed)
+        got = [run.draw_offset() for _ in range(12)]
+        # every round of 4 calls takes each of the pool's 4 whole calls once
+        for r in range(3):
+            assert sorted(got[4 * r:4 * r + 4]) == [0, 4, 8, 12]
+        orders.append(got)
+    assert orders[0] != orders[1] and orders[0] == orders[2]  # the seed draws the order
+
+
+@pytest.mark.parametrize("structures, match", [
+    ({"count": 5, "seed": 1}, "divide"),
+    ({"count": 0, "seed": 1}, "divide"),
+    ({"count": 8}, "structures.seed"),
+    ({"count": 8, "seed": 1, "rule": "x"}, "structures.rule"),
+    ({"count": 8, "seed": 1, "pool_frames": 4100}, "whole calls"),
+])
+def test_traffic_with_bad_structures_is_refused(structures, match):
+    structures = dict(structures)
+    tr = dict(spec.traffic("voronoi_f32"), pool_frames=structures.pop("pool_frames", 4096),
+              structures=structures)
+    with pytest.raises(ValueError, match=match):
+        spec.check_traffic("voronoi_f32", tr)

@@ -68,9 +68,9 @@ def clocks(run, n_calls):
 
     if not hasattr(clock, "recorded_calls"):
         return None
-    hi = run.boxes.shape[0] - run.frames_per_call
-    recs = [CallRecord(run, -2 - i, int(run.offset_rng.integers(0, hi + 1)))
-            for i in range(n_calls)]
+    draw = getattr(run, "draw_offset", None) or (  # a harness without file sources lacks it
+        lambda: int(run.offset_rng.integers(0, run.boxes.shape[0] - run.frames_per_call + 1)))
+    recs = [CallRecord(run, -2 - i, draw()) for i in range(n_calls)]
     clock.recorded_calls()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     run.profiling = True
