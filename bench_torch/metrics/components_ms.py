@@ -1,0 +1,14 @@
+"""`components_ms`: ms a call of device time in the H-bond cluster
+dispatch's components: the `hb_clusters:components` spans (CUDA events
+around the label propagation over the residue adjacency and the cluster
+sizes, one a frame block), summed over the window's recorded calls and
+divided by their number (core/program_trace.py). None where the program
+records no such span."""
+
+from bench_torch.core import program_trace
+
+
+def read(run):
+    got = program_trace.spans(run, "hb_clusters:components")
+    ms = [s.device_ms for _, s in got or () if s.device_ms is not None]
+    return sum(ms) / len(program_trace.calls(run)) if ms else None

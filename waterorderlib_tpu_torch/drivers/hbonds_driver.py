@@ -13,6 +13,10 @@ JAX package counts the cosolvent sets with the arccos matrix
 `general_hbonds`; only counts are consumed, and the two criteria differ only
 on the measure-zero angle boundary. The cluster statistics need the
 residue adjacency, so they build the matrix (`hbonds.bonds.general_hbonds`).
+Their dispatch seam is `hbonds.clusters.hb_cluster_block`, one call a frame
+block from positions to cluster sizes: `get_hb_cluster_stats` ends its
+`kernel stage` after each and its `stats (device)` after the block's size
+distribution and means (same-named stages add up over the blocks).
 Each driver writes the JAX package's text artifacts into `output_dir`.
 """
 
@@ -27,7 +31,6 @@ from waterorderlib_tpu_torch.core import clock
 from waterorderlib_tpu_torch.core.clock import resolve_device, stage_end
 from waterorderlib_tpu_torch.drivers.orderparams import _not_ported, _resolve_system
 from waterorderlib_tpu_torch.hbonds import clusters as clusters_mod
-from waterorderlib_tpu_torch.hbonds.bonds import general_hbonds
 from waterorderlib_tpu_torch.hbonds.populations import bound_wrap_masks
 from waterorderlib_tpu_torch.io.streaming import iter_chunks
 from waterorderlib_tpu_torch.io.topology import Topology
@@ -293,13 +296,15 @@ def get_hb_cluster_stats(
 ):
     """Residue-residue H-bond cluster statistics (orderParam_lib.py:158-237).
 
-    Builds each frame's residue adjacency from the H-bond matrix (any atom
+    Each frame block goes through one dispatch, `hbonds.clusters.
+    hb_cluster_block`: the H-bond matrix, the residue adjacency (any atom
     pair bonded connects two residues: a max over repeated (residue,
     residue) entries, so two atoms of one residue bonding the same partner
-    count once), finds connected components by label propagation, writes
-    the cluster-size distribution summed over frames
-    (clusterDistribution.txt) and returns [mean cluster size, CI] over
-    frames."""
+    count once) and its connected components by label propagation, to
+    each frame's cluster sizes. Writes the cluster-size distribution
+    summed over frames (clusterDistribution.txt) and returns [mean cluster
+    size, CI] over frames. Counts `hb_clusters:edges`, the residue pairs
+    bonded, read with the distribution's D2H."""
     dev = resolve_device(device)
     top, traj = _resolve_system(top_file, traj_file, stride)
     acceptor_inds, donor_inds, donor_h_inds = (np.asarray(a, int) for a in
@@ -314,22 +319,20 @@ def get_hb_cluster_stats(
     stage_end("host gather")
     pos, boxes = _to(traj.positions, traj.boxes, dev)
     stage_end("H2D")
-    eye = torch.eye(n_res, dtype=torch.bool, device=dev)
     dist = torch.zeros(n_res, dtype=torch.int64, device=dev)
+    edges = torch.zeros((), dtype=torch.int64, device=dev)
     means = []
     for fs in _frame_blocks(pos.shape[0], len(acceptor_inds) * len(donor_inds) + n_res * n_res):
-        p, b = pos[fs], boxes[fs]
-        hb = general_hbonds(*(p[:, i] for i in inds), b, dist_cut, ang_cut)
-        fb = hb.shape[0]
-        adj = torch.zeros((fb, n_res * n_res), dtype=torch.int32, device=dev).scatter_reduce_(
-            1, flat.expand(fb, -1), hb.reshape(fb, -1).to(torch.int32), "amax")
-        adj = adj.reshape(fb, n_res, n_res) > 0
-        adj = (adj | adj.transpose(1, 2)) & ~eye
-        sizes = clusters_mod.cluster_sizes(adj)
+        sizes, block_edges = clusters_mod.hb_cluster_block(pos[fs], boxes[fs], inds, flat, n_res,
+                                                           dist_cut, ang_cut)
+        stage_end("kernel stage")
+        edges += block_edges
         means.append(clusters_mod.mean_of_sizes(sizes))
         dist += clusters_mod.size_distribution(sizes, n_res)[:, 1:].sum(dim=0)
-    stage_end("stats (device)")
-    dist_np, means_np = dist.cpu().numpy(), torch.cat(means).cpu().numpy()
+        stage_end("stats (device)")
+    counts = torch.cat([dist, edges[None]]).cpu().numpy()  # the edge count rides the D2H
+    dist_np, means_np = counts[:-1], torch.cat(means).cpu().numpy()
+    clock.count("hb_clusters:edges", int(counts[-1]))
     stage_end("D2H")
     return _stats_tail(output_dir, dist_np, [means_np], seed)[0]
 
